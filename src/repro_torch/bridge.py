@@ -1,0 +1,85 @@
+"""numpy <-> port state, for holding the port against the JAX package.
+
+``from_numpy`` builds the port's containers (``SliceParams``,
+``SchedulerState``, ``NetworkState``, ``Multipliers``, ...) from nested
+dicts of numpy arrays keyed by the JAX package's field names; the container
+type is recognised by its set of fields. Two fields differ from the JAX
+``SchedulerState``:
+
+  * ``het`` replaces ``het_key``: a dict of the four heterogeneity arrays
+    (``link_het``, ``ec_het``, ``phase_d``, ``phase_D``), for example
+    computed on the JAX side with ``repro.core.network.heterogeneity``;
+  * ``rng`` may be an int seed or an integer array (such as a JAX key),
+    whose words seed a fresh ``torch.Generator`` on the target device.
+
+``to_numpy`` is the inverse; it writes a generator as its initial seed, so
+the generator's position is not carried.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .core.types import (Decision, Heterogeneity, Multipliers, NetworkState,
+                         QueueState, SchedulerState, SliceParams, make_generator)
+
+_TYPES = (SchedulerState, SliceParams, NetworkState, Multipliers, QueueState,
+          Decision, Heterogeneity)
+_OPTIONAL = {SliceParams: set(SliceParams._field_defaults)}
+_INT_FIELDS = {"t", "collect_id", "train_id"}
+
+
+def _match_type(keys: set[str]):
+    for cls in _TYPES:
+        fields = set(cls._fields)
+        if keys <= fields and fields - keys <= _OPTIONAL.get(cls, set()):
+            return cls
+    raise KeyError(f"no port container has the fields {sorted(keys)}")
+
+
+def _seed_of(rng: Any) -> int:
+    if isinstance(rng, (int, np.integer)):
+        return int(rng)
+    words = np.asarray(rng).astype(np.uint64).ravel()
+    seed = 0
+    for w in words:
+        seed = ((seed << 32) ^ int(w)) & 0x7FFF_FFFF_FFFF_FFFF
+    return seed
+
+
+def _tensor(name: str, value: Any, device: torch.device) -> torch.Tensor:
+    dtype = torch.int32 if name in _INT_FIELDS else torch.float32
+    return torch.as_tensor(np.array(value), device=device).to(dtype)  # a writable copy
+
+
+def from_numpy(tree: Mapping[str, Any], device: str | torch.device):
+    """Port container for a nested dict of numpy arrays (see module doc)."""
+    device = torch.device(device)
+    cls = _match_type(set(tree))
+    kw = {}
+    for name, value in tree.items():
+        if value is None:
+            kw[name] = None
+        elif name == "rng":
+            kw[name] = make_generator(_seed_of(value), device)
+        elif isinstance(value, Mapping):
+            kw[name] = from_numpy(value, device)
+        else:
+            kw[name] = _tensor(name, value, device)
+    return cls(**kw)
+
+
+def to_numpy(obj: Any):
+    """Nested dict of numpy arrays for a port container (the inverse of
+    ``from_numpy``, generators written as their initial seed)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, torch.Generator):
+        return obj.initial_seed()
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return {f: to_numpy(getattr(obj, f)) for f in obj._fields}
+    if obj is None:
+        return None
+    raise TypeError(f"cannot convert {type(obj).__name__} to numpy")

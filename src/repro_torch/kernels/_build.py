@@ -1,0 +1,71 @@
+"""Builds a package's CUDA sources into a shared library at first use.
+
+The library is compiled by ``nvcc`` for ``sm_90a`` (Hopper) with a plain C
+interface and loaded with ``ctypes``. It lands in ``build/repro_torch/`` at
+the root of the checkout, named by a hash of the sources and the flags, so
+an edited source is rebuilt and an unchanged one is compiled once per
+checkout. Only sources inside this repository are compiled.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Sequence
+
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
+
+# --fmad=false keeps every float a*b+c of the kernels a separate multiply and
+# add, as PyTorch computes them; the kernels compare bit for bit with it.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc was not found (PATH, CUDA_HOME, /usr/local/cuda); "
+                       "the CUDA kernels cannot be built")
+
+
+def library_path(name: str, sources: Sequence[Path]) -> Path:
+    digest = hashlib.sha256()
+    for flag in NVCC_FLAGS:
+        digest.update(flag.encode())
+    for src in sources:
+        digest.update(Path(src).read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(name: str, sources: Sequence[Path]) -> Path:
+    """Compile ``sources`` into one shared library unless it exists; returns
+    its path. Raises with nvcc's output when the build fails."""
+    sources = [Path(s).resolve() for s in sources]
+    for src in sources:
+        if REPO_ROOT not in src.parents:
+            raise ValueError(f"{src} is not a source of this repository")
+    out = library_path(name, sources)
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+    return out
+
+
+def load(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(name, sources)))
