@@ -14,7 +14,22 @@ Phases, each fatal on failure:
      constants -- check the kernel launch counts, finite records and the
      per-slot feasibility invariants;
   4. run two L-DS slots from the same state and network on the card (with
-     the kernels) and on the CPU (with the plain versions) and compare.
+     the kernels) and on the CPU (with the plain versions) and compare;
+  5. build the flash-attention and Mamba-1 scan CUDA kernels (all three
+     libraries are compiled at once, one nvcc each, from phase 1 on);
+  6. hold both against their plain PyTorch versions on the card at the LM
+     serving path's shapes (attention prefill B 4 x 2048, H 32 / Hkv 8,
+     hd 128 and decode over a 48-slot cache; the scan at B 4 x 2048 x 8192
+     x 16 and at S = 1 with h0; windows, soft-cap, prefix, hd 64 / 80,
+     rows that see no key), and time kernel, plain version and, for
+     attention, torch's scaled_dot_product_attention;
+  7. serve minitron-4b at full size through ``repro_torch.launch.serve``
+     (B 4, prompt 16, 32 generated), then check decode against forward,
+     exact launch counts per forward and per decode step, and time a
+     B 4 x 2048 prefill;
+  8. the same for falcon-mamba-7b;
+  9. run reduced minitron-4b and falcon-mamba-7b in float32 on the card
+     (kernels) and on the CPU (plain versions) and compare the logits.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without that last
@@ -30,6 +45,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -39,6 +55,10 @@ SRC = ROOT / "src"
 T_SLOTS = 12
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores
+H100_BF16_TC_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
+# exp2 on the special-function units: 16 results per clock per SM (NVIDIA's
+# arithmetic-throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz.
+H100_SFU_PER_S = 16 * 132 * 1.98e9
 MAIN_SHAPE = (1024, 32)
 BIG_SHAPE = (4096, 64)
 
@@ -378,6 +398,377 @@ def phase_parity(torch, core, bridge, cfg, state, net):
     return report
 
 
+# --------------------------------------------------------------------------
+# Phase 6: the LM kernels against their plain versions
+# --------------------------------------------------------------------------
+
+# Of scale. bf16: two bfloat16 steps (2^-8 of the value each): kernel and
+# plain version both round one float32 result; measured worst on an H100:
+# 2.7e-3. float32: sums in another order; measured worst 3.0e-7.
+BF16_TOL = 8e-3
+F32_TOL = 2e-5
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    """(max abs error, max abs error over the reference's max abs value)."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(float(want.float().abs().max()), 1e-30)
+
+
+def attn_inputs(torch, b, sq, skv, h, hkv, hd, dtype, seed, decode=False):
+    """q, k, v from a numpy seed; prefill positions are the indices, decode
+    holds one query over a ring buffer with permuted positions and empty
+    slots (position -1, invalid)."""
+    rng = np.random.default_rng(seed)
+    dev = "cuda"
+    q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32), device=dev).to(dtype)
+               for s in ((b, sq, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd)))
+    if decode:
+        kp = np.stack([rng.permutation(np.arange(1000, 1000 + skv)) for _ in range(b)])
+        kp[rng.random(kp.shape) < 0.2] = -1
+        kp = torch.as_tensor(kp.astype(np.int32), device=dev)
+        qp = torch.full((b, 1), 1000 + skv, dtype=torch.int32, device=dev)
+        return q, k, v, qp, kp, kp >= 0
+    qp = torch.arange(skv - sq, skv, dtype=torch.int32, device=dev).expand(b, sq).contiguous()
+    kp = torch.arange(skv, dtype=torch.int32, device=dev).expand(b, skv).contiguous()
+    return q, k, v, qp, kp, None
+
+
+def attn_bound(torch, fref, q, k, v, qp, kp, spec, valid):
+    """Least time for this call: q, k, v, o and the positions moved once,
+    or 4 hd operations per visible (q, kv) pair at the type's peak (bf16 on
+    the tensor cores, float32 on the float32 cores)."""
+    visible = float(fref.attention_mask(qp, kp, spec, valid).sum()) * q.shape[2]
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + \
+        4 * (qp.numel() + kp.numel()) + (valid.numel() if valid is not None else 0)
+    peak = H100_BF16_TC_OPS_PER_S if q.dtype == torch.bfloat16 else H100_FP32_OPS_PER_S
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 4.0 * q.shape[-1] * visible / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), visible
+
+
+def scan_bound(x, b, c, h0):
+    """Least time for this call: x, dt, y, a, b, c, h0 and h moved once;
+    7 float32 operations per (token, channel, state) at the float32 rate;
+    or one exponential per (token, channel, state) at the SFU rate."""
+    bsz, s, di = x.shape
+    n = b.shape[-1]
+    nbytes = 3 * x.numel() * x.element_size() + 4 * di * n + \
+        (b.numel() + c.numel()) * b.element_size() + 4 * bsz * di * n * (2 if h0 is not None else 1)
+    terms = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
+             "operations": max(7.0 * bsz * s * di * n / H100_FP32_OPS_PER_S,
+                               1.0 * bsz * s * di * n / H100_SFU_PER_S) * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], by
+
+
+def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
+    F = torch.nn.functional
+    bf16, f32 = torch.bfloat16, torch.float32
+    AttnSpec = fref.AttnSpec
+    # name, (B, Sq, Skv, H, Hkv, hd), dtype, spec, decode
+    attn_cases = [
+        ("prefill_bf16", (4, 2048, 2048, 32, 8, 128), bf16, AttnSpec(), False),
+        ("prefill_f32", (4, 2048, 2048, 32, 8, 128), f32, AttnSpec(), False),
+        ("decode_bf16", (4, 1, 48, 32, 8, 128), bf16, AttnSpec(), True),
+        ("decode_f32", (4, 1, 48, 32, 8, 128), f32, AttnSpec(), True),
+        ("window_bf16", (2, 1024, 1024, 16, 8, 128), bf16, AttnSpec(window=256), False),
+        ("softcap_f32", (2, 512, 512, 8, 2, 128), f32, AttnSpec(softcap=50.0), False),
+        ("prefix_f32", (2, 512, 512, 8, 2, 64), f32, AttnSpec(prefix_len=100), False),
+        ("hd80_f32", (2, 300, 300, 8, 8, 80), f32, AttnSpec(), False),
+        ("hd64_bf16_noncausal", (2, 256, 777, 8, 1, 64), bf16, AttnSpec(causal=False), False),
+        ("masked_rows_f32", (2, 256, 256, 8, 2, 128), f32, AttnSpec(window=64), "masked"),
+    ]
+    attn = {}
+    for idx, (name, (b, sq, skv, h, hkv, hd), dtype, spec, decode) in enumerate(attn_cases):
+        q, k, v, qp, kp, valid = attn_inputs(torch, b, sq, skv, h, hkv, hd, dtype, 100 + idx,
+                                             decode is True)
+        if decode == "masked":  # one batch row has no valid key; others see some
+            valid = torch.ones((b, skv), dtype=torch.bool, device="cuda")
+            valid[1] = False
+            valid[0, 100:180] = False
+        got = fops.flash_attention(q, k, v, qp, kp, spec, kv_valid=valid, impl="kernel")
+        want = fops.flash_attention(q, k, v, qp, kp, spec, kv_valid=valid, impl="chunked")
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        tol = BF16_TOL if dtype == bf16 else F32_TOL
+        unseen = ~fref.attention_mask(qp, kp, spec, valid).any(dim=-1)  # (B, Sq)
+        n_unseen = int(unseen.sum())
+        if n_unseen and not bool((got[unseen] == 0).all()):
+            fail(f"flash_attention {name}: a row that sees no key is not exactly 0")
+        if rel > tol or not bool(torch.isfinite(got).all()):
+            fail(f"flash_attention {name}: {rel:.3e} of scale from the plain version "
+                 f"(limit {tol:.0e})")
+        bound, bound_by, visible = attn_bound(torch, fref, q, k, v, qp, kp, spec, valid)
+        res = {"shape": [b, sq, skv, h, hkv, hd], "dtype": str(dtype), "spec": str(spec),
+               "max_abs_err": err, "err_of_scale": rel, "tol_of_scale": tol,
+               "rows_seeing_no_key": n_unseen, "visible_pairs": visible,
+               "bound_ms": bound, "bound_by": bound_by}
+        if name.startswith(("prefill", "decode")):
+            reps = 10 if name.startswith("prefill") else 200
+            res["ms"] = cuda_ms(torch, lambda: fops.flash_attention(
+                q, k, v, qp, kp, spec, kv_valid=valid, impl="kernel"), reps=reps, warmup=2)
+            res["plain_ms"] = cuda_ms(torch, lambda: fops.flash_attention(
+                q, k, v, qp, kp, spec, kv_valid=valid, impl="chunked"),
+                reps=3 if name.startswith("prefill") else 50, warmup=1)
+        if name == "prefill_bf16":
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib = sdpa().transpose(1, 2)
+            res["library_err_of_scale"] = rel_err(lib, want)[1]
+            res["library_ms"] = cuda_ms(torch, sdpa, reps=10, warmup=2)
+        attn[name] = res
+        del q, k, v, got, want
+
+    scan = {}
+    scan_cases = [("prefill_bf16", (4, 2048, 8192, 16), bf16, False),
+                  ("decode_bf16", (4, 1, 8192, 16), bf16, True),
+                  ("prefill_f32", (2, 512, 1024, 16), f32, True),
+                  ("odd_f32", (3, 77, 1000, 8), f32, True)]
+    for idx, (name, (b, s, di, n), dtype, with_h0) in enumerate(scan_cases):
+        rng = np.random.default_rng(200 + idx)
+        dev = "cuda"
+        x = torch.as_tensor(rng.normal(size=(b, s, di)).astype(np.float32), device=dev).to(dtype)
+        dt = torch.as_tensor(rng.uniform(0.001, 0.1, (b, s, di)).astype(np.float32),
+                             device=dev).to(dtype)
+        a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(di, n).contiguous()
+        bm, cm = (torch.as_tensor(rng.normal(size=(b, s, n)).astype(np.float32),
+                                  device=dev).to(dtype) for _ in range(2))
+        h0 = (torch.as_tensor(rng.normal(size=(b, di, n)).astype(np.float32), device=dev)
+              if with_h0 else None)
+        y, h = sops.mamba1_scan(x, dt, a, bm, cm, h0=h0, impl="kernel")
+        y_want, h_want = sops.mamba1_scan(x, dt, a, bm, cm, h0=h0, impl="chunked")
+        torch.cuda.synchronize()
+        tol = BF16_TOL if dtype == bf16 else F32_TOL
+        err_y, rel_y = rel_err(y, y_want)
+        err_h, rel_h = rel_err(h, h_want)
+        if max(rel_y, rel_h if dtype == f32 else 0.0) > tol or not bool(torch.isfinite(y).all()):
+            fail(f"mamba1_scan {name}: y {rel_y:.3e}, h {rel_h:.3e} of scale from the plain "
+                 f"version (limit {tol:.0e})")
+        if rel_h > F32_TOL * 10:  # the state is float32 in both
+            fail(f"mamba1_scan {name}: final state {rel_h:.3e} of scale from the plain version")
+        bound, bound_by = scan_bound(x, bm, cm, h0)
+        res = {"shape": [b, s, di, n], "dtype": str(dtype), "h0": with_h0,
+               "max_abs_err": max(err_y, err_h), "err_of_scale": rel_y,
+               "state_err_of_scale": rel_h, "tol_of_scale": tol,
+               "bound_ms": bound, "bound_by": bound_by}
+        if name in ("prefill_bf16", "decode_bf16"):
+            reps = 10 if name == "prefill_bf16" else 200
+            res["ms"] = cuda_ms(torch, lambda: sops.mamba1_scan(
+                x, dt, a, bm, cm, h0=h0, impl="kernel"), reps=reps, warmup=2)
+            res["plain_ms"] = cuda_ms(torch, lambda: sops.mamba1_scan(
+                x, dt, a, bm, cm, h0=h0, impl="chunked"),
+                reps=2 if name == "prefill_bf16" else 50, warmup=1)
+        scan[name] = res
+        del x, dt, y, y_want
+    torch.cuda.empty_cache()
+    return {"flash_attention": attn, "mamba1_scan": scan}
+
+
+# --------------------------------------------------------------------------
+# Phases 7-8: serve the full-size models
+# --------------------------------------------------------------------------
+
+# Of scale: bf16 teacher-forced decode against the bf16 forward at full size.
+# The two round every layer's activations to bf16 after products of other
+# shapes, 32 or 64 times over; measured on an H100: 2.2e-2 for
+# minitron-4b (relu^2 MLP), 7.0e-3 for falcon-mamba-7b. The float32 reduced
+# models of phase 9 hold the same code to 1e-5.
+MODEL_TOL = 5e-2
+
+
+def reset_counts(*kernels) -> None:
+    for k in kernels:
+        k.reset_launch_counts()
+
+
+def all_counts(*kernels) -> dict:
+    out = {}
+    for k in kernels:
+        out.update(k.launches)
+    return out
+
+
+def profile_window(torch, fn) -> dict:
+    """Device time of ``fn`` under torch.profiler: kernel time summed over
+    CUDA events, the launch count, the host-clock wall time of the same
+    window and the busy share, plus the largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    if busy_ms <= 0.0:
+        fail("the profiler saw no device time")
+    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    return {"device_busy_ms": busy_ms, "wall_ms": wall_ms, "busy_share": busy_ms / wall_ms,
+            "device_launches": sum(e.count for e in kernels),
+            "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3, "count": e.count} for e in top]}
+
+
+def phase_serve(torch, arch, kernel_name, serve, steps, models, get_config, kernels):
+    """Serve ``arch`` at full size through the user's entry point, then
+    check decode against forward with exact launch counts and time a
+    B 4 x 2048 prefill."""
+    import gc
+    cfg = get_config(arch)
+    per_call = cfg.n_layers
+    batch, prompt_len, gen = 4, 16, 32
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt_len),
+            "--gen", str(gen)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    summary = serve.main(argv)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = all_counts(*kernels)
+    want = {k: 0 for k in counts}
+    want[kernel_name] = per_call * (prompt_len + gen)
+    if counts != want:
+        fail(f"{arch} serve: launches {counts}, expected {want}")
+    out = {"serve_main": summary, "serve_main_s": serve_s, "serve_launches": counts,
+           "serve_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    api = models.build_model(cfg)
+    t0 = time.perf_counter()
+    model = api.init(0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
+                             dtype=torch.int32, device="cuda")
+    reset_counts(*kernels)
+    full = api.forward(model, {"tokens": prompt})
+    torch.cuda.synchronize()
+    if all_counts(*kernels)[kernel_name] != per_call:
+        fail(f"{arch}: {all_counts(*kernels)} launches in one forward, expected {per_call}")
+    cache = api.init_cache(batch, prompt_len + gen)
+    outs = []
+    for t in range(prompt_len):
+        reset_counts(*kernels)
+        logits, cache = api.decode_step(model, cache, prompt[:, t:t + 1])
+        if all_counts(*kernels)[kernel_name] != per_call:
+            fail(f"{arch}: {all_counts(*kernels)} launches in one decode step, "
+                 f"expected {per_call}")
+        outs.append(logits[:, 0])
+    dec = torch.stack(outs, dim=1)
+    if full.shape != (batch, prompt_len, cfg.vocab_size) or not bool(torch.isfinite(full).all()) \
+            or not bool(torch.isfinite(dec).all()):
+        fail(f"{arch}: forward logits {tuple(full.shape)} not finite of the expected shape")
+    err, rel = rel_err(dec, full)
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    if rel > MODEL_TOL:
+        fail(f"{arch}: teacher-forced decode is {rel:.3e} of scale from the forward "
+             f"(limit {MODEL_TOL})")
+    out.update({"decode_vs_forward_err_of_scale": rel, "decode_vs_forward_max_abs": err,
+                "argmax_agreement": agree, "logit_scale": float(full.float().abs().max())})
+
+    # Serving loop timed alone (teacher-forced prompt, then greedy tokens).
+    step = steps.make_serve_step(api)
+    cache = api.init_cache(batch, prompt_len + gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok = None
+    for t in range(prompt_len):
+        tok, cache = step(model, cache, prompt[:, t:t + 1])
+    for _ in range(gen):
+        tok, cache = step(model, cache, tok)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out["tokens_per_s"] = batch * (prompt_len + gen) / dt
+    out["ms_per_decode_step"] = dt / (prompt_len + gen) * 1e3
+
+    def two_steps():
+        nonlocal tok, cache
+        for _ in range(2):
+            tok, cache = step(model, cache, tok)
+
+    out["decode_profile"] = prof = profile_window(torch, two_steps)
+    # Shares of the unprofiled time, as in phase 3 (the profiler slows the host).
+    out["decode_busy_share"] = prof["device_busy_ms"] / 2 / out["ms_per_decode_step"]
+    out["decode_launches_per_step"] = prof["device_launches"] / 2
+    del full, dec, cache, outs, logits
+
+    prefill = steps.make_prefill_step(api)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, 2048)),
+                             dtype=torch.int32, device="cuda")
+    logits = prefill(model, {"tokens": tokens})  # warm
+    del logits
+    torch.cuda.synchronize()
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    logits = prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["prefill_tokens_per_s"] = batch * 2048 / (out["prefill_ms"] / 1e3)
+    if all_counts(*kernels)[kernel_name] != per_call:
+        fail(f"{arch}: {all_counts(*kernels)} launches in the 2048-token prefill")
+    if logits.shape != (batch, 2048, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        fail(f"{arch}: prefill logits {tuple(logits.shape)} not finite of the expected shape")
+    out["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del logits
+    out["prefill_profile"] = prof = profile_window(torch, lambda: prefill(model, {"tokens": tokens}))
+    out["prefill_busy_share"] = prof["device_busy_ms"] / out["prefill_ms"]
+    del model, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 9: reduced models, card against CPU
+# --------------------------------------------------------------------------
+
+def phase_lm_parity(torch, models, configs, kernels):
+    """Reduced minitron-4b and falcon-mamba-7b in float32 with the same
+    weights: forward logits and 4 decode steps on the card (kernels) and on
+    the CPU (plain versions) agree within 1e-5 of scale. Both sum in float32
+    in other orders (matmuls outside TF32, set in main)."""
+    out = {}
+    batch = 2
+    for arch in ("minitron-4b", "falcon-mamba-7b"):
+        cfg = configs.reduced(configs.get_config(arch))
+        cpu = models.build_model(cfg, device="cpu")
+        gpu = models.build_model(cfg)
+        m_cpu = cpu.init(0)
+        m_gpu = models.new_model(cfg, "cuda")
+        m_gpu.load_state_dict(m_cpu.state_dict())
+        tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (batch, 16)).astype(np.int32)
+        tc, tg = torch.as_tensor(tokens), torch.as_tensor(tokens, device="cuda")
+        reset_counts(*kernels)
+        pairs = [("forward", gpu.forward(m_gpu, {"tokens": tg}), cpu.forward(m_cpu, {"tokens": tc}))]
+        c_cpu, c_gpu = cpu.init_cache(batch, 8), gpu.init_cache(batch, 8)
+        for t in range(4):
+            lg, c_gpu = gpu.decode_step(m_gpu, c_gpu, tg[:, t:t + 1])
+            lc, c_cpu = cpu.decode_step(m_cpu, c_cpu, tc[:, t:t + 1])
+            pairs.append((f"decode{t}", lg, lc))
+        launched = all_counts(*kernels)
+        if sum(launched.values()) != 5 * cfg.n_layers:
+            fail(f"{arch} reduced: kernel launches {launched}, expected {5 * cfg.n_layers}")
+        worst = 0.0
+        for name, g, c in pairs:
+            rel = rel_err(g.cpu(), c)[1]
+            worst = max(worst, rel)
+            if rel > 1e-5:
+                fail(f"{arch} reduced {name}: card and CPU logits differ by {rel:.3e} of scale")
+        out[arch] = {"max_err_of_scale": worst, "launches": launched}
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", type=Path, default=None,
@@ -392,9 +783,19 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch import bridge, core
+    from repro_torch import bridge, configs, core, models
     from repro_torch.core import metrics, training_alloc
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.mamba_scan import kernel as skernel
+    from repro_torch.kernels.mamba_scan import ops as sops
     from repro_torch.kernels.matching import kernel, ops, ref
+    from repro_torch.launch import serve, steps
+
+    # Float32 products in full float32 on the card, as on the CPU.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -403,9 +804,18 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
-    kernel.build()
-    build_s = time.perf_counter() - t0
+    # One nvcc per library, all started together; phase 1 waits for the
+    # matchers, phase 5 for the other two.
+    def timed_build(build):
+        t = time.perf_counter()
+        build()
+        return time.perf_counter() - t
+
+    pool = ThreadPoolExecutor(max_workers=3)
+    builds = {name: pool.submit(timed_build, mod.build) for name, mod in
+              (("greedy_matching", kernel), ("flash_attention", fkernel),
+               ("mamba1_scan", skernel))}
+    build_s = builds["greedy_matching"].result()
     print(f"phase 1 build: {build_s:.1f} s")
 
     t0 = time.perf_counter()
@@ -431,6 +841,40 @@ def main(argv=None) -> int:
     parity = phase_parity(torch, core, bridge, cfg, *final["l-ds"])
     print(f"phase 4 CUDA vs CPU slots: {json.dumps(parity)} ({time.perf_counter() - t0:.1f} s)")
 
+    lm_build_s = {name: builds[name].result() for name in ("flash_attention", "mamba1_scan")}
+    pool.shutdown()
+    print(f"phase 5 build (started with phase 1, seconds each): {json.dumps(lm_build_s)}")
+
+    t0 = time.perf_counter()
+    lm_kres = phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel)
+    for kname, cases in lm_kres.items():
+        print(f"phase 6 {kname} vs plain: " + json.dumps(
+            {c: {k: r[k] for k in ("err_of_scale", "ms", "plain_ms", "bound_ms", "library_ms")
+                 if k in r} for c, r in cases.items()}))
+    print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
+
+    all_kernels = (kernel, fkernel, skernel)
+    serve_res = {}
+    for phase, arch, kname in ((7, "minitron-4b", "flash_attention"),
+                               (8, "falcon-mamba-7b", "mamba1_scan")):
+        t0 = time.perf_counter()
+        serve_res[arch] = r = phase_serve(torch, arch, kname, serve, steps, models,
+                                          configs.get_config, all_kernels)
+        print(f"phase {phase} {arch}: " + json.dumps(
+            {k: r[k] for k in ("tokens_per_s", "ms_per_decode_step", "prefill_ms",
+                               "decode_vs_forward_err_of_scale", "argmax_agreement",
+                               "decode_busy_share", "decode_launches_per_step",
+                               "prefill_busy_share", "serve_launches", "prefill_peak_gib",
+                               "init_s")})
+            + f" ({time.perf_counter() - t0:.1f} s)")
+        for window in ("decode_profile", "prefill_profile"):
+            print(f"phase {phase} {arch} {window}: " + json.dumps(r[window]))
+
+    t0 = time.perf_counter()
+    lm_parity = phase_lm_parity(torch, models, configs, all_kernels)
+    print(f"phase 9 reduced models, card vs CPU: {json.dumps(lm_parity)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -453,12 +897,33 @@ def main(argv=None) -> int:
             "bit_equal": all(c["bit_equal"] for c in r["checks"]),
             "big": r["timing"]["big"],
         })
+    lm_lines = (
+        ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:133",
+         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu", "minitron-4b"),
+        ("mamba1_scan", "src/repro/kernels/mamba_scan/kernel.py:54",
+         "src/repro_torch/kernels/mamba_scan/csrc/mamba1_scan.cu", "falcon-mamba-7b"))
+    for kname, replaces, source, arch in lm_lines:
+        cases = lm_kres[kname]
+        main_case, dec_case = cases["prefill_bf16"], cases["decode_bf16"]
+        per_call = configs.get_config(arch).n_layers
+        line.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": serve_res[arch]["serve_launches"][kname],
+            "launches_per_forward": per_call, "launches_per_decode_step": per_call,
+            "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+            "library_ms": main_case.get("library_ms"), "shape": main_case["shape"],
+            "decode": {k: dec_case[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                "bound_by")},
+        })
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
             "card": smi, "torch": torch.__version__, "build_s": build_s, "kernels": kres,
             "main_path": main_res, "training_ms": train_ms, "profile": prof,
-            "parity": parity}, indent=1))
+            "parity": parity, "lm_build_s": lm_build_s, "lm_kernels": lm_kres,
+            "serve": serve_res, "lm_parity": lm_parity}, indent=1))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,9 @@ type is recognised by its set of fields. Two fields differ from the JAX
 
 ``to_numpy`` is the inverse; it writes a generator as its initial seed, so
 the generator's position is not carried.
+
+``lm_params_from_numpy`` builds a port language model from the JAX
+package's parameter tree (``model.init(key)`` as numpy).
 """
 from __future__ import annotations
 
@@ -69,6 +72,40 @@ def from_numpy(tree: Mapping[str, Any], device: str | torch.device):
         else:
             kw[name] = _tensor(name, value, device)
     return cls(**kw)
+
+
+def _flat_names(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flat_names(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def lm_params_from_numpy(cfg, tree: Mapping[str, Any], device: str | torch.device,
+                         dtype: torch.dtype | None = None):
+    """The port's model of ``cfg`` holding the parameters of a JAX parameter
+    tree (nested dicts of numpy arrays: ``embed``, ``blocks`` with stacked
+    (L, ...) leaves, ``final_norm``, ``head``), copied name for name. Raises
+    if a name is missing on either side or a shape differs."""
+    from .models import new_model  # the scheduler's users need no model code
+
+    model = new_model(cfg, torch.device(device), dtype)
+    given = _flat_names(tree)
+    params = dict(model.named_parameters())
+    if set(given) != set(params):
+        raise KeyError(f"parameter names differ: only in the JAX tree "
+                       f"{sorted(set(given) - set(params))}, only in the port "
+                       f"{sorted(set(params) - set(given))}")
+    with torch.no_grad():
+        for name, p in params.items():
+            value = np.asarray(given[name])
+            if value.shape != tuple(p.shape):
+                raise ValueError(f"{name}: JAX shape {value.shape}, port shape {tuple(p.shape)}")
+            p.copy_(torch.as_tensor(value.astype(np.float32)))
+    return model
 
 
 def to_numpy(obj: Any):

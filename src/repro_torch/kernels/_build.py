@@ -19,10 +19,13 @@ from typing import Sequence
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 
-# --fmad=false keeps every float a*b+c of the kernels a separate multiply and
-# add, as PyTorch computes them; the kernels compare bit for bit with it.
+# Flags of every library. A library adds its own (``extra_flags``): the
+# greedy matchers pass --fmad=false, which keeps every float a*b+c a separate
+# multiply and add as PyTorch computes them, because they are held bit for
+# bit against their plain versions. Kernels held to a tolerance (attention,
+# the selective scan) keep nvcc's default contraction into fused multiply-adds.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -36,28 +39,30 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def library_path(name: str, sources: Sequence[Path]) -> Path:
+def library_path(name: str, sources: Sequence[Path],
+                 extra_flags: Sequence[str] = ()) -> Path:
     digest = hashlib.sha256()
-    for flag in NVCC_FLAGS:
+    for flag in (*NVCC_FLAGS, *extra_flags):
         digest.update(flag.encode())
     for src in sources:
         digest.update(Path(src).read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str, sources: Sequence[Path]) -> Path:
-    """Compile ``sources`` into one shared library unless it exists; returns
-    its path. Raises with nvcc's output when the build fails."""
+def build(name: str, sources: Sequence[Path], extra_flags: Sequence[str] = ()) -> Path:
+    """Compile ``sources`` with ``NVCC_FLAGS`` and ``extra_flags`` into one
+    shared library unless it exists; returns its path. Raises with nvcc's
+    output when the build fails."""
     sources = [Path(s).resolve() for s in sources]
     for src in sources:
         if REPO_ROOT not in src.parents:
             raise ValueError(f"{src} is not a source of this repository")
-    out = library_path(name, sources)
+    out = library_path(name, sources, extra_flags)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -67,5 +72,5 @@ def build(name: str, sources: Sequence[Path]) -> Path:
     return out
 
 
-def load(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build(name, sources)))
+def load(name: str, sources: Sequence[Path], extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(name, sources, extra_flags)))

@@ -1,0 +1,102 @@
+"""Attention front end: the dispatch that models call, and the plain
+online-softmax version; counterpart of ``repro.kernels.flash_attention.ops``.
+
+``flash_attention(..., impl="auto")`` launches the CUDA kernel (``kernel.py``)
+for CUDA tensors, in prefill and in decode alike, as the JAX package runs its
+Pallas kernel on a TPU. For CPU tensors it runs ``attention_chunked``, and
+for one query row (``Sq == 1``, decode) the exact grouped ``attention_ref``,
+as the JAX package does off the TPU. ``"kernel"``, ``"chunked"`` and
+``"ref"`` force one path; the kernel raises on a CPU tensor. There is no
+fallback: on a CUDA tensor the kernel launches or raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import kernel
+from .ref import NEG, AttnSpec, attention_mask, attention_ref
+
+IMPLS = ("auto", "kernel", "chunked", "ref")
+
+
+def _chunk_sizes(sq: int, skv: int, q_chunk: int, kv_chunk: int) -> tuple[int, int]:
+    qc = min(q_chunk, sq)
+    while sq % qc:
+        qc //= 2
+    kc = min(kv_chunk, skv)
+    while skv % kc:
+        kc //= 2
+    return max(qc, 1), max(kc, 1)
+
+
+def attention_chunked(q, k, v, q_pos, kv_pos, spec: AttnSpec, kv_valid=None,
+                      scale: Optional[float] = None, q_chunk: int = 1024,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention, chunked over q (outer loop) and kv (inner
+    loop), with (m, l, acc) in float32: the plain version of the kernel.
+    Same signature and semantics as ``attention_ref``.
+
+    A causal sliding window with no prefix reads only a window-sized kv span
+    per q chunk, located by index (the layout of a prefill, where positions
+    are the indices)."""
+    b, sq, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = hd ** -0.5 if scale is None else scale
+    qc, kc = _chunk_sizes(sq, skv, q_chunk, kv_chunk)
+    if kv_valid is None:
+        kv_valid = torch.ones((b, skv), dtype=torch.bool, device=q.device)
+    windowed = spec.window > 0 and spec.prefix_len == 0 and spec.causal
+    span = min(skv, -(-(spec.window + qc) // kc) * kc + kc) if windowed else skv
+    out = torch.empty_like(q)
+    for q0 in range(0, sq, qc):
+        qb = q[:, q0:q0 + qc].float().transpose(1, 2)  # (B, H, qc, hd)
+        qp = q_pos[:, q0:q0 + qc]
+        lo = min(max(q0 + qc - span, 0), skv - span) if windowed else 0
+        acc = torch.zeros((b, h, qc, hd), dtype=torch.float32, device=q.device)
+        m = torch.full((b, h, qc), NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, h, qc), dtype=torch.float32, device=q.device)
+        for k0 in range(lo, lo + span, kc):
+            ks = k[:, k0:k0 + kc].float()
+            vs = v[:, k0:k0 + kc].float()
+            if group > 1:
+                ks = ks.repeat_interleave(group, dim=2)
+                vs = vs.repeat_interleave(group, dim=2)
+            logits = torch.einsum("bhqd,bkhd->bhqk", qb, ks) * scale
+            if spec.softcap > 0:
+                logits = spec.softcap * torch.tanh(logits / spec.softcap)
+            mask = attention_mask(qp, kv_pos[:, k0:k0 + kc], spec, kv_valid[:, k0:k0 + kc])
+            logits = torch.where(mask[:, None], logits, NEG)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vs)
+            m = m_new
+        res = acc / torch.clamp(l[..., None], min=1e-30)
+        res = torch.where((m > NEG / 2)[..., None], res, 0.0)  # rows that see no key
+        out[:, q0:q0 + qc] = res.transpose(1, 2).to(q.dtype)
+    return out
+
+
+def flash_attention(q, k, v, q_pos, kv_pos, spec: AttnSpec, kv_valid=None,
+                    scale: Optional[float] = None, impl: str = "auto",
+                    q_chunk: int = 1024, kv_chunk: int = 1024) -> torch.Tensor:
+    """Attention entry point of the models: q (B, Sq, H, hd), k/v
+    (B, Skv, Hkv, hd), q_pos (B, Sq), kv_pos (B, Skv), kv_valid (B, Skv) or
+    None -> (B, Sq, H, hd) in q.dtype. impl: auto | kernel | chunked | ref."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; expected one of {IMPLS}")
+    if impl == "auto":
+        impl = "kernel" if q.is_cuda else "chunked"
+    if impl == "kernel":
+        return kernel.flash_attention_cuda(q, k, v, q_pos, kv_pos, spec,
+                                           kv_valid=kv_valid, scale=scale)
+    if impl == "chunked" and q.shape[1] == 1:
+        return attention_ref(q, k, v, q_pos, kv_pos, spec, kv_valid, scale, gqa="group")
+    if impl == "chunked":
+        return attention_chunked(q, k, v, q_pos, kv_pos, spec, kv_valid, scale,
+                                 q_chunk, kv_chunk)
+    return attention_ref(q, k, v, q_pos, kv_pos, spec, kv_valid, scale)

@@ -21,6 +21,8 @@ import torch
 from .. import _build
 
 SOURCES = (Path(__file__).parent / "csrc" / "greedy_matching.cu",)
+# Bit-equality with the plain versions needs uncontracted a*b+c (_build.py).
+EXTRA_FLAGS = ("--fmad=false",)
 
 # Launch counts per kernel name, bumped by the wrappers below.
 launches = {"greedy_collection": 0, "greedy_assignment": 0, "greedy_pairing": 0}
@@ -36,7 +38,7 @@ def _library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = _build.load("greedy_matching", SOURCES)
+            lib = _build.load("greedy_matching", SOURCES, EXTRA_FLAGS)
             vp, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
             lib.greedy_collection_launch.argtypes = [vp, vp, vp, i, i, i, vp, ip]
             lib.greedy_assignment_launch.argtypes = [vp, vp, i, i, i, vp, ip]

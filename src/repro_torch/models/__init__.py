@@ -1,0 +1,83 @@
+"""Model facade of the port: ``build_model(cfg, impl, device)`` returns one
+API for every ported architecture family (counterpart of
+``repro.models``).
+
+Ported families: ``dense`` (``transformer.DenseLM``) and ``ssm``
+(``ssm.MambaLM``, Mamba-1). ``moe``, ``hybrid``, ``encdec`` and ``vlm``
+raise ``NotImplementedError``; ROADMAP.md lists them. Entry points run on
+the CUDA card unless the caller names another device.
+
+Batch dict convention: ``tokens`` (B, S) integer token ids.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from . import ssm, transformer
+
+# family -> (module with init_params / forward / init_cache / decode_step, model class)
+_FAMILIES = {"dense": (transformer, transformer.DenseLM), "ssm": (ssm, ssm.MambaLM)}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelApi:
+    cfg: ArchConfig
+    device: torch.device
+    init: Callable[..., nn.Module]  # (seed, dtype=None) -> model with drawn weights
+    forward: Callable[..., torch.Tensor]  # (model, batch) -> logits (B, S, V)
+    init_cache: Callable[..., Any]  # (batch_size, max_len) -> cache
+    decode_step: Callable[..., tuple]  # (model, cache, tokens (B, 1)) -> (logits, cache)
+
+
+def resolve_device(device=None) -> torch.device:
+    """CUDA unless the caller names another device; without a card only an
+    explicit non-CUDA device (``device="cpu"``) is accepted."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run the "
+                           "plain PyTorch versions on the CPU")
+    return dev
+
+
+def _family(cfg: ArchConfig):
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(f"model family {cfg.family!r} is not ported to PyTorch "
+                                  "yet (see ROADMAP.md)")
+    return _FAMILIES[cfg.family]
+
+
+def new_model(cfg: ArchConfig, device, dtype: Optional[torch.dtype] = None) -> nn.Module:
+    """The family's module with uninitialised parameters on ``device``."""
+    return _family(cfg)[1](cfg, device=device, dtype=dtype)
+
+
+def build_model(cfg: ArchConfig, impl: str = "auto", device=None) -> ModelApi:
+    """The model API of ``cfg`` on ``device`` (CUDA by default). ``impl``
+    picks the attention / scan path (``auto``: the CUDA kernels on the card,
+    the plain versions on the CPU)."""
+    mod = _family(cfg)[0]
+    dev = resolve_device(device)
+
+    def init(seed: int = 0, dtype: Optional[torch.dtype] = None) -> nn.Module:
+        """Weights drawn on the device from a generator seeded with ``seed``
+        (float32 draws, stored in ``dtype``, default ``cfg.param_dtype``;
+        serving passes the compute dtype so the cast is done once)."""
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return mod.init_params(cfg, new_model(cfg, dev, dtype), gen)
+
+    return ModelApi(
+        cfg=cfg, device=dev, init=init,
+        forward=lambda model, batch: mod.forward(cfg, model, batch["tokens"], impl=impl),
+        init_cache=lambda bs, max_len, **kw: mod.init_cache(cfg, bs, max_len, device=dev, **kw),
+        decode_step=lambda model, cache, tokens: mod.decode_step(cfg, model, cache, tokens,
+                                                                 impl=impl),
+    )
+
+
+__all__ = ["ModelApi", "build_model", "new_model", "resolve_device"]

@@ -1,0 +1,187 @@
+"""Mamba-1 blocks and the pure-SSM LM (falcon-mamba) in PyTorch;
+counterpart of the Mamba-1 half of ``repro.models.ssm`` (Mamba-2 comes with
+the hybrid models, ROADMAP.md).
+
+``MambaLM`` keeps the JAX package's parameter tree (per-layer parameters
+stacked on a leading L axis under their JAX names). The selective scan goes
+through ``mamba1_scan`` (the CUDA kernel on the card, in prefill and in
+decode). Decode is O(1) per token: a K-1 conv tail and the recurrent state
+per layer, updated in place by ``decode_step``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ArchConfig
+from ..kernels.mamba_scan.ops import mamba1_scan
+from . import layers as L
+
+
+def mamba1_shapes(cfg: ArchConfig, n_layers: int) -> dict[str, tuple[int, ...]]:
+    d, di, n, r, k = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                      cfg.resolved_dt_rank, cfg.ssm_conv)
+    return {
+        "norm": (n_layers, d), "in_proj": (n_layers, d, 2 * di),
+        "conv_w": (n_layers, di, k), "conv_b": (n_layers, di),
+        "x_proj": (n_layers, di, r + 2 * n), "dt_proj": (n_layers, r, di),
+        "dt_bias": (n_layers, di), "a_log": (n_layers, di, n),
+        "ssm_d": (n_layers, di), "out_proj": (n_layers, di, d),
+    }
+
+
+class MambaLM(nn.Module):
+    """Parameters of a pure Mamba-1 LM under the JAX package's names. Built
+    empty; ``init_params`` draws them."""
+
+    def __init__(self, cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if cfg.family != "ssm" or cfg.ssm_version != 1:
+            raise NotImplementedError(f"{cfg.family!r} / Mamba-{cfg.ssm_version} is not "
+                                      "ported to PyTorch yet (see ROADMAP.md)")
+        self.cfg = cfg
+        dtype = dtype or getattr(torch, cfg.param_dtype)
+
+        def empty(shape):
+            return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                                requires_grad=False)
+
+        self.embed = empty((cfg.vocab_size, cfg.d_model))
+        self.blocks = nn.ParameterDict(
+            {k: empty(s) for k, s in mamba1_shapes(cfg, cfg.n_layers).items()})
+        self.final_norm = empty((cfg.d_model,))
+        if not cfg.tie_embeddings:
+            self.head = empty((cfg.d_model, cfg.vocab_size))
+
+    def forward(self, tokens: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+        return forward(self.cfg, self, tokens, impl=impl)
+
+
+@torch.no_grad()
+def init_mamba1_stack(cfg: ArchConfig, blocks: nn.ParameterDict, gen: torch.Generator) -> None:
+    """Fill a stacked Mamba-1 parameter dict with the JAX package's
+    initialisers (drawn in float32, stored in the parameters' dtype)."""
+    n_layers = blocks["norm"].shape[0]
+    d, di, n, r, k = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                      cfg.resolved_dt_rank, cfg.ssm_conv)
+    dev = blocks["norm"].device
+
+    def dense(shape, scale=1.0):
+        return L.dense_init(gen, shape, scale=scale, device=dev, lead=(n_layers,))
+
+    blocks["norm"].zero_()
+    blocks["in_proj"].copy_(dense((d, 2 * di)))
+    blocks["conv_w"].copy_(L.dense_init(gen, (di, k), in_axis=1, device=dev, lead=(n_layers,)))
+    blocks["conv_b"].zero_()
+    blocks["x_proj"].copy_(dense((di, r + 2 * n)))
+    blocks["dt_proj"].copy_(dense((r, di), scale=r ** 0.5 * 0.1))
+    blocks["dt_bias"].fill_(math.log(math.expm1(0.01)))
+    arange = torch.arange(1, n + 1, dtype=torch.float32, device=dev)
+    blocks["a_log"].copy_(torch.log(arange).expand(n_layers, di, n))
+    blocks["ssm_d"].fill_(1.0)
+    blocks["out_proj"].copy_(dense((di, d), scale=1.0 / math.sqrt(2 * cfg.n_layers) * math.sqrt(di)))
+
+
+@torch.no_grad()
+def init_params(cfg: ArchConfig, model: MambaLM, gen: torch.Generator) -> MambaLM:
+    dev = model.embed.device
+    model.embed.copy_(L.embed_init(gen, model.embed.shape, device=dev))
+    init_mamba1_stack(cfg, model.blocks, gen)
+    model.final_norm.zero_()
+    if not cfg.tie_embeddings:
+        model.head.copy_(L.dense_init(gen, (cfg.d_model, cfg.vocab_size), device=dev))
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (+ its tail for decode)
+# ---------------------------------------------------------------------------
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                state: Optional[torch.Tensor] = None):
+    """x (B, S, DI), w (DI, K), b (DI,). Returns (y, new_state), where the
+    state holds the last K-1 inputs for streaming decode."""
+    bsz, s, di = x.shape
+    k = w.shape[1]
+    pad = (torch.zeros((bsz, k - 1, di), dtype=x.dtype, device=x.device)
+           if state is None else state.to(x.dtype))
+    xp = torch.cat([pad, x], dim=1)  # (B, S + K - 1, DI)
+    y = torch.zeros_like(x)
+    for i in range(k):
+        y = y + xp[:, i:i + s] * w[:, i]
+    new_state = xp[:, s:] if k > 1 else xp[:, :0]
+    return y + b, new_state
+
+
+# ---------------------------------------------------------------------------
+# Block and LM
+# ---------------------------------------------------------------------------
+
+def mamba1_block(cfg: ArchConfig, x, p, state=None, impl: str = "auto"):
+    """x (B, S, D); state None (prefill) or dict(conv, h) for decode.
+    Returns (out, new_state)."""
+    r, n, di = cfg.resolved_dt_rank, cfg.ssm_state, cfg.d_inner
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    xi, z = torch.matmul(h, p["in_proj"]).split([di, di], dim=-1)
+    xi, new_conv = causal_conv(xi, p["conv_w"], p["conv_b"],
+                               None if state is None else state["conv"])
+    xi = F.silu(xi)
+    dt_r, bmat, cmat = torch.matmul(xi, p["x_proj"]).split([r, n, n], dim=-1)
+    dt = F.softplus(torch.matmul(dt_r, p["dt_proj"]) + p["dt_bias"])
+    a = -torch.exp(p["a_log"].float())
+    y, h_new = mamba1_scan(xi, dt, a, bmat, cmat, h0=None if state is None else state["h"],
+                           chunk=cfg.ssm_chunk, impl=impl)
+    y = (y + xi * p["ssm_d"]) * F.silu(z)
+    out = x + torch.matmul(y, p["out_proj"])
+    return out, (None if state is None else {"conv": new_conv, "h": h_new})
+
+
+def _logits(cfg: ArchConfig, model: MambaLM, x: torch.Tensor) -> torch.Tensor:
+    cdt = L.compute_dtype(cfg)
+    x = L.rms_norm(x, L.cast(model.final_norm, cdt), cfg.norm_eps)
+    head = L.cast(model.embed, cdt).t() if cfg.tie_embeddings else L.cast(model.head, cdt)
+    return torch.matmul(x, head)
+
+
+@torch.no_grad()
+def forward(cfg: ArchConfig, model: MambaLM, tokens: torch.Tensor,
+            impl: str = "auto") -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V)."""
+    cdt = L.compute_dtype(cfg)
+    x = L.cast(model.embed[tokens.long()], cdt)
+    for layer in range(cfg.n_layers):
+        x, _ = mamba1_block(cfg, x, L.layer_params(model.blocks, layer, cdt), impl=impl)
+    return _logits(cfg, model, x)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=None) -> dict:
+    """Per-layer conv tails (L, B, K-1, DI) and float32 states (L, B, DI, N);
+    ``max_len`` is not needed (the state has a fixed size)."""
+    dt = dtype or L.compute_dtype(cfg)
+    di, n, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    return {
+        "pos": 0,
+        "conv": torch.zeros((cfg.n_layers, batch, k - 1, di), dtype=dt, device=device),
+        "h": torch.zeros((cfg.n_layers, batch, di, n), dtype=torch.float32, device=device),
+    }
+
+
+@torch.no_grad()
+def decode_step(cfg: ArchConfig, model: MambaLM, cache: dict, tokens: torch.Tensor,
+                impl: str = "auto"):
+    """tokens (B, 1) -> (logits (B, 1, V), cache); the cache is updated in
+    place and returned."""
+    cdt = L.compute_dtype(cfg)
+    x = L.cast(model.embed[tokens.long()], cdt)
+    for layer in range(cfg.n_layers):
+        state = {"conv": cache["conv"][layer], "h": cache["h"][layer]}
+        x, new = mamba1_block(cfg, x, L.layer_params(model.blocks, layer, cdt), state=state,
+                              impl=impl)
+        cache["conv"][layer] = new["conv"]
+        cache["h"][layer] = new["h"]
+    cache["pos"] = int(cache["pos"]) + 1
+    return _logits(cfg, model, x), cache

@@ -1,0 +1,102 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions
+on the card. Every test here needs a CUDA card: it is marked ``cuda`` and
+skips without one. This file imports nothing of JAX, so it runs on a machine
+that has only PyTorch:
+
+    python -m pytest -m cuda tests/test_torch_cuda_kernels.py
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.flash_attention import kernel as fkernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import AttnSpec, attention_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan import ops as sops  # noqa: E402
+from repro_torch.kernels.mamba_scan.ref import mamba1_scan_ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+# (B, Sq, Skv, H, Hkv, hd, spec), tests/test_torch_flash_attention.py's
+# cases plus a ragged length and a head dim of 128.
+ATTN_CASES = [
+    (2, 128, 128, 4, 2, 64, AttnSpec(causal=True)),
+    (1, 256, 256, 8, 8, 32, AttnSpec(causal=True, window=64)),
+    (2, 128, 128, 4, 1, 64, AttnSpec(causal=True, softcap=30.0)),
+    (1, 64, 192, 4, 2, 32, AttnSpec(causal=False)),
+    (1, 128, 128, 2, 2, 16, AttnSpec(causal=True, prefix_len=32)),
+    (1, 128, 128, 8, 2, 32, AttnSpec(causal=True)),
+    (1, 64, 64, 2, 1, 80, AttnSpec(causal=True)),
+    (2, 100, 173, 8, 2, 128, AttnSpec(causal=True)),
+]
+# Kernel and plain version both sum in float32 but in other orders; the
+# bfloat16 output is one rounding of that.
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_matches_plain_version(card, case, dtype):
+    b, sq, skv, h, hkv, hd, spec = case
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32), device=card).to(dtype)
+               for s in ((b, sq, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd)))
+    qp = torch.arange(skv - sq, skv, dtype=torch.int32, device=card).expand(b, sq)
+    kp = torch.arange(skv, dtype=torch.int32, device=card).expand(b, skv)
+    before = fkernel.launches["flash_attention"]
+    got = fops.flash_attention(q, k, v, qp, kp, spec)
+    assert fkernel.launches["flash_attention"] == before + 1
+    assert got.dtype == dtype
+    _close(got, fops.attention_chunked(q, k, v, qp, kp, spec), TOL[dtype])
+
+
+def test_flash_attention_decode_ring_buffer(card):
+    """Sq = 1 over permuted positions with empty slots; the last row sees
+    no key and must be exactly 0."""
+    b, skv, h, hkv, hd = 3, 48, 8, 2, 128
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32), device=card)
+               for s in ((b, 1, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd)))
+    kp = np.stack([rng.permutation(np.arange(100, 100 + skv)) for _ in range(b)])
+    kp[0, rng.random(skv) < 0.25] = -1
+    kp[1, :10] = -1
+    kp = torch.as_tensor(kp.astype(np.int32), device=card)
+    qp = torch.as_tensor([[140], [130], [20]], dtype=torch.int32, device=card)
+    for spec in (AttnSpec(), AttnSpec(window=16), AttnSpec(softcap=20.0)):
+        got = fops.flash_attention(q, k, v, qp, kp, spec, kv_valid=kp >= 0)
+        _close(got, attention_ref(q, k, v, qp, kp, spec, kv_valid=kp >= 0, gqa="group"), 2e-5)
+        assert bool((got[2] == 0).all()) and bool((got[:2] != 0).any())
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 32, 8), (2, 128, 64, 16), (1, 96, 300, 4),
+                                   (2, 1, 32, 16), (1, 40, 64, 24)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_mamba1_scan_matches_plain_version(card, shape, dtype):
+    b, s, di, n = shape
+    rng = np.random.default_rng(3)
+    f = lambda *sh: torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=card)  # noqa: E731
+    x, bm, cm, h0 = f(b, s, di), f(b, s, n), f(b, s, n), f(b, di, n)
+    dt = torch.as_tensor(rng.uniform(0.001, 0.1, (b, s, di)).astype(np.float32), device=card)
+    a = -torch.as_tensor(rng.uniform(0.5, 2.0, (di, n)).astype(np.float32), device=card)
+    x, dt = x.to(dtype), dt.to(dtype)
+    for init in (None, h0):
+        y, h = sops.mamba1_scan(x, dt, a, bm, cm, h0=init)
+        y_want, h_want = mamba1_scan_ref(x, dt, a, bm, cm, h0=init)
+        assert y.dtype == dtype and h.dtype == torch.float32
+        _close(y, y_want, 2e-4 if dtype == torch.float32 else 2e-2)
+        _close(h, h_want, 2e-4)
