@@ -16,17 +16,22 @@ Phases, each fatal on failure:
   4. run two L-DS slots from the same state and network on the card (with
      the kernels) and on the CPU (with the plain versions) and compare;
   5. build the flash-attention and Mamba-1 scan CUDA kernels (all three
-     libraries are compiled at once, one nvcc each, from phase 1 on);
-  6. hold both against their plain PyTorch versions on the card at the LM
-     serving path's shapes (attention prefill B 4 x 2048, H 32 / Hkv 8,
-     hd 128 and decode over a 48-slot cache; the scan at B 4 x 2048 x 8192
-     x 16 and at S = 1 with h0; windows, soft-cap, prefix, hd 64 / 80,
-     rows that see no key), and time kernel, plain version and, for
-     attention, torch's scaled_dot_product_attention;
+     libraries are compiled at once, one nvcc each, from phase 1 on), and
+     check with ``cuobjdump -sass`` that the bf16 prefill attention kernel
+     runs its products as HGMMA (wgmma) instructions;
+  6. hold the three LM kernels against their plain PyTorch versions on the
+     card at the LM serving path's shapes (attention prefill B 4 x 2048,
+     H 32 / Hkv 8, hd 128 on the wgmma kernel and decode over a 48-slot
+     cache on the SIMT one; the scan at B 4 x 2048 x 8192 x 16 and at S = 1
+     with h0; windows, soft-cap, prefix, ragged lengths, hd 64 / 80 / 128,
+     Hkv 1 / 2 / 8, rows that see no key, in bf16 and float32), check which
+     attention kernel each case launched, and time kernel, plain version
+     and, for attention, torch's scaled_dot_product_attention (the prefill
+     also on the SIMT kernel);
   7. serve minitron-4b at full size through ``repro_torch.launch.serve``
      (B 4, prompt 16, 32 generated), then check decode against forward,
-     exact launch counts per forward and per decode step, and time a
-     B 4 x 2048 prefill;
+     exact launch counts per forward and per decode step (SIMT attention),
+     and time a B 4 x 2048 prefill (wgmma attention in all 32 layers);
   8. the same for falcon-mamba-7b;
   9. run reduced minitron-4b and falcon-mamba-7b in float32 on the card
      (kernels) and on the CPU (plain versions) and compare the logits.
@@ -42,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -399,6 +405,48 @@ def phase_parity(torch, core, bridge, cfg, state, net):
 
 
 # --------------------------------------------------------------------------
+# Phase 5: what the wgmma kernel compiled to
+# --------------------------------------------------------------------------
+
+def wgmma_sass(fkernel, cuda_tool) -> dict:
+    """HGMMA instructions in the SASS of each instance of the wgmma kernel
+    (``cuobjdump -sass`` on the built library), with ptxas's registers and
+    spills from the build log. Fails unless every instance holds HGMMA."""
+    lib = fkernel.library_path()
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, cur = {}, None
+
+    def short(mangled):  # flash_fwd_sm90_kernel<HD>
+        m = re.search(r"flash_fwd_sm90_kernelILi(\d+)E", mangled)
+        return f"hd{m.group(1)}" if m else None
+
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = short(m.group(1))
+            if cur:
+                out[cur] = {"hgmma": 0}
+        elif cur and "HGMMA" in line:
+            out[cur]["hgmma"] += 1
+    if sorted(out) != ["hd128", "hd64"] or min(r["hgmma"] for r in out.values()) == 0:
+        fail(f"the wgmma kernel's SASS holds no HGMMA: {out}")
+    cur = None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = short(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if cur in out and m:
+            out[cur].update(spill_store_bytes=int(m.group(1)), spill_load_bytes=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if cur in out and m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+# --------------------------------------------------------------------------
 # Phase 6: the LM kernels against their plain versions
 # --------------------------------------------------------------------------
 
@@ -479,6 +527,24 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
         ("hd64_bf16_noncausal", (2, 256, 777, 8, 1, 64), bf16, AttnSpec(causal=False), False),
         ("masked_rows_f32", (2, 256, 256, 8, 2, 128), f32, AttnSpec(window=64), "masked"),
     ]
+    # The wgmma kernel's cases, at both of its head dims and Hkv 1, 2 and 8:
+    # soft-cap, prefix-LM, a batch row with no valid key, Sq and Skv that are
+    # not multiples of 64, a window of 256.
+    for hd in (64, 128):
+        attn_cases += [
+            (f"softcap_bf16_hd{hd}", (2, 512, 512, 8, 1, hd), bf16, AttnSpec(softcap=50.0), False),
+            (f"prefix_bf16_hd{hd}", (2, 512, 512, 8, 2, hd), bf16, AttnSpec(prefix_len=100),
+             False),
+            (f"masked_rows_bf16_hd{hd}", (2, 256, 256, 8, 8, hd), bf16, AttnSpec(window=64),
+             "masked"),
+            (f"ragged_bf16_hd{hd}", (2, 333, 555, 8, 2, hd), bf16, AttnSpec(), False),
+        ]
+    attn_cases.append(("window_bf16_hd64", (2, 1024, 1024, 16, 8, 64), bf16,
+                       AttnSpec(window=256), False))
+    # The wgmma kernel rounds P to bf16 before P V (the plain version keeps
+    # float32): 8192 keys feeding every row show the error stays in bounds.
+    attn_cases += [(f"long_bf16_noncausal_hd{hd}", (1, 256, 8192, 8, 2, hd), bf16,
+                    AttnSpec(causal=False), False) for hd in (64, 128)]
     attn = {}
     for idx, (name, (b, sq, skv, h, hkv, hd), dtype, spec, decode) in enumerate(attn_cases):
         q, k, v, qp, kp, valid = attn_inputs(torch, b, sq, skv, h, hkv, hd, dtype, 100 + idx,
@@ -487,7 +553,14 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
             valid = torch.ones((b, skv), dtype=torch.bool, device="cuda")
             valid[1] = False
             valid[0, 100:180] = False
+        route = fkernel.variant(dtype, hd, sq)
+        before = dict(fkernel.launches)
         got = fops.flash_attention(q, k, v, qp, kp, spec, kv_valid=valid, impl="kernel")
+        wgmma_launched = fkernel.launches["flash_attention_wgmma"] - before["flash_attention_wgmma"]
+        if fkernel.launches["flash_attention"] - before["flash_attention"] != 1 or \
+                wgmma_launched != int(route == "wgmma"):
+            fail(f"flash_attention {name}: routed to {route}, but launches went "
+                 f"{before} -> {fkernel.launches}")
         want = fops.flash_attention(q, k, v, qp, kp, spec, kv_valid=valid, impl="chunked")
         torch.cuda.synchronize()
         err, rel = rel_err(got, want)
@@ -501,7 +574,7 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
                  f"(limit {tol:.0e})")
         bound, bound_by, visible = attn_bound(torch, fref, q, k, v, qp, kp, spec, valid)
         res = {"shape": [b, sq, skv, h, hkv, hd], "dtype": str(dtype), "spec": str(spec),
-               "max_abs_err": err, "err_of_scale": rel, "tol_of_scale": tol,
+               "route": route, "max_abs_err": err, "err_of_scale": rel, "tol_of_scale": tol,
                "rows_seeing_no_key": n_unseen, "visible_pairs": visible,
                "bound_ms": bound, "bound_by": bound_by}
         if name.startswith(("prefill", "decode")):
@@ -512,12 +585,29 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
                 q, k, v, qp, kp, spec, kv_valid=valid, impl="chunked"),
                 reps=3 if name.startswith("prefill") else 50, warmup=1)
         if name == "prefill_bf16":
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            # The SIMT kernel of flash_attention.cu forced on the same inputs.
+            simt = fkernel.flash_attention_cuda(q, k, v, qp, kp, spec, force_simt=True)
+            res["simt_err_of_scale"] = simt_rel = rel_err(simt, want)[1]
+            if simt_rel > tol:
+                fail(f"flash_attention {name} (simt): {simt_rel:.3e} of scale from the plain "
+                     f"version (limit {tol:.0e})")
+            res["simt_ms"] = cuda_ms(torch, lambda: fkernel.flash_attention_cuda(
+                q, k, v, qp, kp, spec, force_simt=True), reps=10, warmup=2)
+            res["occupancy"] = fkernel.wgmma_occupancy(hd, skv)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if name == "prefill_bf16":
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, is_causal=True, enable_gqa=True)
+        elif name == "decode_bf16":  # the mask as a boolean argument, built outside
+            amask = fref.attention_mask(qp, kp, spec, valid)[:, None]
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=amask, enable_gqa=True)
+        else:
+            sdpa = None
+        if sdpa is not None:
             lib = sdpa().transpose(1, 2)
             res["library_err_of_scale"] = rel_err(lib, want)[1]
-            res["library_ms"] = cuda_ms(torch, sdpa, reps=10, warmup=2)
+            res["library_ms"] = cuda_ms(torch, sdpa, reps=10 if sq > 1 else 200, warmup=2)
         attn[name] = res
         del q, k, v, got, want
 
@@ -590,6 +680,16 @@ def all_counts(*kernels) -> dict:
     return out
 
 
+def expect_counts(kernels, what: str, want: dict) -> dict:
+    """The launch counts since the last reset; fails unless they are
+    ``want`` exactly, every kernel not named in it at 0."""
+    counts = all_counts(*kernels)
+    full = {k: want.get(k, 0) for k in counts}
+    if counts != full:
+        fail(f"{what}: launches {counts}, expected {full}")
+    return counts
+
+
 def profile_window(torch, fn) -> dict:
     """Device time of ``fn`` under torch.profiler: kernel time summed over
     CUDA events, the launch count, the host-clock wall time of the same
@@ -616,10 +716,13 @@ def profile_window(torch, fn) -> dict:
             "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3, "count": e.count} for e in top]}
 
 
-def phase_serve(torch, arch, kernel_name, serve, steps, models, get_config, kernels):
+def phase_serve(torch, arch, kernel_name, serve, steps, models, get_config, kernels,
+                prefill_counts):
     """Serve ``arch`` at full size through the user's entry point, then
     check decode against forward with exact launch counts and time a
-    B 4 x 2048 prefill."""
+    B 4 x 2048 prefill, whose launches must be ``prefill_counts`` (the
+    serve run, the 16-token forward and decode steps launch ``kernel_name``
+    once per layer and nothing else)."""
     import gc
     cfg = get_config(arch)
     per_call = cfg.n_layers
@@ -633,11 +736,8 @@ def phase_serve(torch, arch, kernel_name, serve, steps, models, get_config, kern
     summary = serve.main(argv)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    counts = all_counts(*kernels)
-    want = {k: 0 for k in counts}
-    want[kernel_name] = per_call * (prompt_len + gen)
-    if counts != want:
-        fail(f"{arch} serve: launches {counts}, expected {want}")
+    counts = expect_counts(kernels, f"{arch} serve",
+                           {kernel_name: per_call * (prompt_len + gen)})
     out = {"serve_main": summary, "serve_main_s": serve_s, "serve_launches": counts,
            "serve_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     gc.collect()
@@ -654,16 +754,13 @@ def phase_serve(torch, arch, kernel_name, serve, steps, models, get_config, kern
     reset_counts(*kernels)
     full = api.forward(model, {"tokens": prompt})
     torch.cuda.synchronize()
-    if all_counts(*kernels)[kernel_name] != per_call:
-        fail(f"{arch}: {all_counts(*kernels)} launches in one forward, expected {per_call}")
+    expect_counts(kernels, f"{arch} forward of {prompt_len} tokens", {kernel_name: per_call})
     cache = api.init_cache(batch, prompt_len + gen)
     outs = []
     for t in range(prompt_len):
         reset_counts(*kernels)
         logits, cache = api.decode_step(model, cache, prompt[:, t:t + 1])
-        if all_counts(*kernels)[kernel_name] != per_call:
-            fail(f"{arch}: {all_counts(*kernels)} launches in one decode step, "
-                 f"expected {per_call}")
+        expect_counts(kernels, f"{arch} decode step", {kernel_name: per_call})
         outs.append(logits[:, 0])
     dec = torch.stack(outs, dim=1)
     if full.shape != (batch, prompt_len, cfg.vocab_size) or not bool(torch.isfinite(full).all()) \
@@ -715,8 +812,8 @@ def phase_serve(torch, arch, kernel_name, serve, steps, models, get_config, kern
     torch.cuda.synchronize()
     out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
     out["prefill_tokens_per_s"] = batch * 2048 / (out["prefill_ms"] / 1e3)
-    if all_counts(*kernels)[kernel_name] != per_call:
-        fail(f"{arch}: {all_counts(*kernels)} launches in the 2048-token prefill")
+    out["prefill_launches"] = expect_counts(kernels, f"{arch} B {batch} x 2048 prefill",
+                                            prefill_counts)
     if logits.shape != (batch, 2048, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
         fail(f"{arch}: prefill logits {tuple(logits.shape)} not finite of the expected shape")
     out["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -844,27 +941,40 @@ def main(argv=None) -> int:
     lm_build_s = {name: builds[name].result() for name in ("flash_attention", "mamba1_scan")}
     pool.shutdown()
     print(f"phase 5 build (started with phase 1, seconds each): {json.dumps(lm_build_s)}")
+    from repro_torch.kernels import _build
+    sass = wgmma_sass(fkernel, _build.cuda_tool)
+    print(f"phase 5 wgmma kernel SASS (HGMMA instructions, ptxas registers and spills): "
+          f"{json.dumps(sass)}")
 
     t0 = time.perf_counter()
     lm_kres = phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel)
     for kname, cases in lm_kres.items():
         print(f"phase 6 {kname} vs plain: " + json.dumps(
-            {c: {k: r[k] for k in ("err_of_scale", "ms", "plain_ms", "bound_ms", "library_ms")
-                 if k in r} for c, r in cases.items()}))
+            {c: {k: r[k] for k in ("err_of_scale", "ms", "simt_ms", "plain_ms", "bound_ms",
+                                   "library_ms") if k in r}
+             for c, r in cases.items()}))
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
 
     all_kernels = (kernel, fkernel, skernel)
     serve_res = {}
-    for phase, arch, kname in ((7, "minitron-4b", "flash_attention"),
-                               (8, "falcon-mamba-7b", "mamba1_scan")):
+    # The B 4 x 2048 bf16 prefill takes the wgmma kernel in each of
+    # minitron-4b's 32 layers (and counts under both names); the serve run,
+    # which prefills by decode, and every decode step take the SIMT one.
+    n_minitron = configs.get_config("minitron-4b").n_layers
+    n_falcon = configs.get_config("falcon-mamba-7b").n_layers
+    for phase, arch, kname, prefill_counts in (
+            (7, "minitron-4b", "flash_attention",
+             {"flash_attention": n_minitron, "flash_attention_wgmma": n_minitron}),
+            (8, "falcon-mamba-7b", "mamba1_scan", {"mamba1_scan": n_falcon})):
         t0 = time.perf_counter()
         serve_res[arch] = r = phase_serve(torch, arch, kname, serve, steps, models,
-                                          configs.get_config, all_kernels)
+                                          configs.get_config, all_kernels, prefill_counts)
         print(f"phase {phase} {arch}: " + json.dumps(
             {k: r[k] for k in ("tokens_per_s", "ms_per_decode_step", "prefill_ms",
                                "decode_vs_forward_err_of_scale", "argmax_agreement",
                                "decode_busy_share", "decode_launches_per_step",
-                               "prefill_busy_share", "serve_launches", "prefill_peak_gib",
+                               "prefill_busy_share", "serve_launches", "prefill_launches",
+                               "prefill_peak_gib",
                                "init_s")})
             + f" ({time.perf_counter() - t0:.1f} s)")
         for window in ("decode_profile", "prefill_profile"):
@@ -897,32 +1007,56 @@ def main(argv=None) -> int:
             "bit_equal": all(c["bit_equal"] for c in r["checks"]),
             "big": r["timing"]["big"],
         })
-    lm_lines = (
-        ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:133",
-         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu", "minitron-4b"),
-        ("mamba1_scan", "src/repro/kernels/mamba_scan/kernel.py:54",
-         "src/repro_torch/kernels/mamba_scan/csrc/mamba1_scan.cu", "falcon-mamba-7b"))
-    for kname, replaces, source, arch in lm_lines:
-        cases = lm_kres[kname]
-        main_case, dec_case = cases["prefill_bf16"], cases["decode_bf16"]
-        per_call = configs.get_config(arch).n_layers
-        line.append({
-            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": serve_res[arch]["serve_launches"][kname],
-            "launches_per_forward": per_call, "launches_per_decode_step": per_call,
-            "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
-            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-            "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-            "library_ms": main_case.get("library_ms"), "shape": main_case["shape"],
-            "decode": {k: dec_case[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                                "bound_by")},
-        })
+    fa_replaces = "src/repro/kernels/flash_attention/kernel.py:133"
+    fa = lm_kres["flash_attention"]
+    pre, dec = fa["prefill_bf16"], fa["decode_bf16"]
+    mini = serve_res["minitron-4b"]
+    per_call = configs.get_config("minitron-4b").n_layers
+    fa_err = {route: max(r["max_abs_err"] for r in fa.values() if r["route"] == route)
+              for route in ("simt", "wgmma")}
+    # The SIMT kernel's main path is decode (the serve run); the wgmma
+    # kernel's is the B 4 x 2048 prefill.
+    line.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": fa_replaces, "launches": mini["serve_launches"]["flash_attention"],
+        "launches_per_decode_step": per_call, "max_abs_err": fa_err["simt"],
+        "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
+        "bound_by": dec["bound_by"], "library_ms": dec["library_ms"], "shape": dec["shape"],
+        "prefill": {"shape": pre["shape"], "ms": pre["simt_ms"], "bound_ms": pre["bound_ms"]},
+    })
+    line.append({
+        "name": "flash_attention_wgmma", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
+        "replaces": fa_replaces,
+        "launches": mini["prefill_launches"]["flash_attention_wgmma"],
+        "launches_serve": mini["serve_launches"]["flash_attention_wgmma"],
+        "max_abs_err": fa_err["wgmma"], "ms": pre["ms"], "simt_ms": pre["simt_ms"],
+        "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+        "library_ms": pre["library_ms"], "shape": pre["shape"],
+        "occupancy": pre["occupancy"], "sass": sass,
+    })
+    sc = lm_kres["mamba1_scan"]
+    pre, dec = sc["prefill_bf16"], sc["decode_bf16"]
+    per_call = configs.get_config("falcon-mamba-7b").n_layers
+    line.append({
+        "name": "mamba1_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba1_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan/kernel.py:54",
+        "launches": serve_res["falcon-mamba-7b"]["serve_launches"]["mamba1_scan"],
+        "launches_per_forward": per_call, "launches_per_decode_step": per_call,
+        "max_abs_err": max(r["max_abs_err"] for r in sc.values()),
+        "ms": pre["ms"], "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
+        "bound_by": pre["bound_by"], "library_ms": None, "shape": pre["shape"],
+        "decode": {k: dec[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")},
+    })
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
             "card": smi, "torch": torch.__version__, "build_s": build_s, "kernels": kres,
             "main_path": main_res, "training_ms": train_ms, "profile": prof,
-            "parity": parity, "lm_build_s": lm_build_s, "lm_kernels": lm_kres,
+            "parity": parity, "lm_build_s": lm_build_s, "wgmma_sass": sass,
+            "lm_kernels": lm_kres,
             "serve": serve_res, "lm_parity": lm_parity}, indent=1))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,7 +4,8 @@ The library is compiled by ``nvcc`` for ``sm_90a`` (Hopper) with a plain C
 interface and loaded with ``ctypes``. It lands in ``build/repro_torch/`` at
 the root of the checkout, named by a hash of the sources and the flags, so
 an edited source is rebuilt and an unchanged one is compiled once per
-checkout. Only sources inside this repository are compiled.
+checkout; nvcc's own output is kept beside it (``.log``). Only sources
+inside this repository are compiled.
 """
 from __future__ import annotations
 
@@ -28,14 +29,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
+    found = shutil.which(name)
     if found:
         return found
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and (Path(root) / "bin" / "nvcc").is_file():
-            return str(Path(root) / "bin" / "nvcc")
-    raise RuntimeError("nvcc was not found (PATH, CUDA_HOME, /usr/local/cuda); "
+        if root and (Path(root) / "bin" / name).is_file():
+            return str(Path(root) / "bin" / name)
+    raise RuntimeError(f"{name} was not found (PATH, CUDA_HOME, /usr/local/cuda); "
                        "the CUDA kernels cannot be built")
 
 
@@ -62,12 +64,14 @@ def build(name: str, sources: Sequence[Path], extra_flags: Sequence[str] = ()) -
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), *map(str, sources)]
+    cmd = [cuda_tool(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    # nvcc's report (e.g. ptxas -v: registers and spills per kernel) beside it.
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
     return out
 

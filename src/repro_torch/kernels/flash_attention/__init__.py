@@ -1,3 +1,4 @@
 """Attention: the exact reference (``ref.py``), the plain online-softmax
-version and the dispatch (``ops.py``), and the CUDA kernel (``kernel.py``,
-``csrc/flash_attention.cu``)."""
+version and the dispatch (``ops.py``), and the two CUDA kernels
+(``kernel.py``; ``csrc/flash_attention.cu`` on the float32 cores,
+``csrc/flash_attention_sm90.cu`` on wgmma tensor cores for bf16 prefill)."""

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import kernel as fkernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import AttnSpec, attention_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as sops  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import mamba1_scan_ref  # noqa: E402
@@ -63,6 +64,52 @@ def test_flash_attention_matches_plain_version(card, case, dtype):
     assert fkernel.launches["flash_attention"] == before + 1
     assert got.dtype == dtype
     _close(got, fops.attention_chunked(q, k, v, qp, kp, spec), TOL[dtype])
+
+
+# bf16 cases of the wgmma kernel at both of its head dims, Hkv 1, 2 and 8:
+# (B, Sq, Skv, H, Hkv, spec, a batch row with no valid key).
+WGMMA_CASES = [
+    (2, 256, 256, 8, 1, AttnSpec(softcap=50.0), False),
+    (2, 256, 256, 8, 2, AttnSpec(prefix_len=100), False),
+    (2, 128, 128, 8, 8, AttnSpec(window=64), True),
+    (2, 100, 173, 8, 2, AttnSpec(), False),
+    (1, 333, 555, 4, 2, AttnSpec(window=256), False),
+    (2, 64, 777, 8, 1, AttnSpec(causal=False), True),
+    (1, 128, 8192, 4, 2, AttnSpec(causal=False), False),
+]
+BF16_TOL_OF_SCALE = 8e-3  # two bf16 roundings of the value, as chip_smoke.py
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=str)
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_wgmma_matches_plain_version(card, case, hd):
+    """bf16 prefill takes the wgmma kernel (and only it); rows that see no
+    key are exactly 0."""
+    b, sq, skv, h, hkv, spec, masked_row = case
+    rng = np.random.default_rng(11)
+    shapes = ((b, sq, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd))
+    q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32), device=card)
+               .to(torch.bfloat16) for s in shapes)
+    qp = torch.arange(skv - sq, skv, dtype=torch.int32, device=card).expand(b, sq)
+    kp = torch.arange(skv, dtype=torch.int32, device=card).expand(b, skv)
+    valid = None
+    if masked_row:
+        valid = torch.ones((b, skv), dtype=torch.bool, device=card)
+        valid[-1] = False
+        valid[0, 10:40] = False
+    assert fkernel.variant(torch.bfloat16, hd, sq) == "wgmma"
+    before = dict(fkernel.launches)
+    got = fops.flash_attention(q, k, v, qp, kp, spec, kv_valid=valid, impl="kernel")
+    assert fkernel.launches["flash_attention_wgmma"] == before["flash_attention_wgmma"] + 1
+    assert fkernel.launches["flash_attention"] == before["flash_attention"] + 1
+    want = fops.attention_chunked(q, k, v, qp, kp, spec, kv_valid=valid)
+    err = float((got.float() - want.float()).abs().max())
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    assert err <= BF16_TOL_OF_SCALE * float(want.float().abs().max())
+    unseen = ~fref.attention_mask(qp, kp, spec, valid).any(dim=-1)
+    assert bool((got[unseen] == 0).all())
+    if masked_row:
+        assert int(unseen.sum()) >= sq
 
 
 def test_flash_attention_decode_ring_buffer(card):

@@ -167,11 +167,26 @@ def test_dispatch_and_refusals():
     with pytest.raises(ValueError, match="impl"):
         tops.flash_attention(q, k, v, qp, kp, spec, impl="pallas")
     before = dict(tkernel.launches)
+    assert set(before) == {"flash_attention", "flash_attention_wgmma"}
     with pytest.raises(ValueError, match="CUDA"):
         tops.flash_attention(q, k, v, qp, kp, spec, impl="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.flash_attention_cuda(q, k, v, qp, kp, spec)
-    assert tkernel.launches == before == {"flash_attention": before["flash_attention"]}
+    with pytest.raises(ValueError, match="CUDA"):  # the forced kernel refuses them as well
+        tkernel.flash_attention_cuda(q, k, v, qp, kp, spec, force_simt=True)
+    assert tkernel.launches == before
+    tkernel.reset_launch_counts()
+    assert tkernel.launches == {"flash_attention": 0, "flash_attention_wgmma": 0}
+
+
+@pytest.mark.parametrize("sq", [1, 16, 63, 64, 333, 2048])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=str)
+def test_kernel_variant(dtype, hd, sq):
+    """bf16 with hd 64 or 128 and at least 64 query rows takes the wgmma
+    kernel; float32, other head dims and decode-sized calls the SIMT one."""
+    wgmma = dtype == torch.bfloat16 and hd in (64, 128) and sq >= 64
+    assert tkernel.variant(dtype, hd, sq) == ("wgmma" if wgmma else "simt")
 
 
 def test_kernel_source_and_build_flags():
@@ -187,6 +202,20 @@ def test_kernel_source_and_build_flags():
     assert path != _build.library_path("flash_attention", tkernel.SOURCES, ("--fmad=false",))
     assert "int flash_attention_launch(" in tkernel.SOURCES[0].read_text()
     assert "int mamba1_scan_launch(" in skernel.SOURCES[0].read_text()
+    # The wgmma kernel: its own entry in the same library, both products as
+    # wgmma (bf16 in, float32 out), k / v through cp.async; built with
+    # nvcc's default contraction and ptxas's report, never --fmad=false.
+    sm90 = tkernel.SOURCES[1]
+    assert sm90.name == "flash_attention_sm90.cu" and len(tkernel.SOURCES) == 2
+    text = sm90.read_text()
+    assert "int flash_attention_wgmma_launch(" in text
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in text
+    assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in text
+    assert "cp.async.cg.shared.global" in text
+    assert "--fmad=false" not in tkernel.EXTRA_FLAGS and "-v" in tkernel.EXTRA_FLAGS
+    assert tkernel.library_path() == _build.library_path("flash_attention", tkernel.SOURCES,
+                                                         tkernel.EXTRA_FLAGS)
+    assert tkernel.library_path() != path  # keyed by both sources and the flags
     code = ("import repro_torch.kernels.flash_attention.ops as o, "
             "repro_torch.kernels.mamba_scan.ops as s; "
             "assert o.kernel._lib is None and s.kernel._lib is None")
