@@ -16,18 +16,23 @@ Phases, each fatal on failure:
   4. run two L-DS slots from the same state and network on the card (with
      the kernels) and on the CPU (with the plain versions) and compare;
   5. build the flash-attention and Mamba-1 scan CUDA kernels (all three
-     libraries are compiled at once, one nvcc each, from phase 1 on), and
+     libraries are compiled at once, one nvcc each, from phase 1 on),
      check with ``cuobjdump -sass`` that the bf16 prefill attention kernel
-     runs its products as HGMMA (wgmma) instructions;
+     runs its products as HGMMA (wgmma) instructions, and print ptxas's
+     registers and spills of the wgmma and scan kernels;
   6. hold the three LM kernels against their plain PyTorch versions on the
      card at the LM serving path's shapes (attention prefill B 4 x 2048,
      H 32 / Hkv 8, hd 128 on the wgmma kernel and decode over a 48-slot
-     cache on the SIMT one; the scan at B 4 x 2048 x 8192 x 16 and at S = 1
-     with h0; windows, soft-cap, prefix, ragged lengths, hd 64 / 80 / 128,
-     Hkv 1 / 2 / 8, rows that see no key, in bf16 and float32), check which
-     attention kernel each case launched, and time kernel, plain version
-     and, for attention, torch's scaled_dot_product_attention (the prefill
-     also on the SIMT kernel);
+     cache on the SIMT one; the scan at B 4 x 2048 x 8192 x 16, also with
+     a drawn per (channel, state) and b / c as strided bf16 slices of one
+     x_proj-shaped tensor as the model passes them, at S = 1 with h0, over
+     8192 steps and at N = 32; windows, soft-cap, prefix, ragged lengths,
+     hd 64 / 80 / 128, Hkv 1 / 2 / 8, rows that see no key, in bf16 and
+     float32), check which attention kernel each case launched, and time
+     kernel, plain version and, for attention, torch's
+     scaled_dot_product_attention (the bf16 prefill also on the SIMT
+     kernel); the scan's decode also as device time per call under
+     torch.profiler;
   7. serve minitron-4b at full size through ``repro_torch.launch.serve``
      (B 4, prompt 16, 32 generated), then check decode against forward,
      exact launch counts per forward and per decode step (SIMT attention),
@@ -408,6 +413,40 @@ def phase_parity(torch, core, bridge, cfg, state, net):
 # Phase 5: what the wgmma kernel compiled to
 # --------------------------------------------------------------------------
 
+def ptxas_report(lib: Path, short) -> dict:
+    """ptxas's registers and spills of each kernel instance in a library's
+    build log (``-Xptxas -v``), keyed by ``short(mangled name)``; instances
+    for which ``short`` gives None are left out."""
+    out, cur = {}, None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = short(m.group(1))
+            if cur:
+                out.setdefault(cur, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if cur and m:
+            out[cur].update(spill_store_bytes=int(m.group(1)), spill_load_bytes=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if cur and m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+def scan_ptxas(skernel) -> dict:
+    """Registers and spills of each instance of the scan kernel (x's type,
+    lanes per channel pair G)."""
+    def short(mangled):  # mamba1_scan_kernel<T, G>
+        m = re.search(r"mamba1_scan_kernelI(f|13__nv_bfloat16)Li(\d+)EE", mangled)
+        return f"{'f32' if m.group(1) == 'f' else 'bf16'}_g{m.group(2)}" if m else None
+
+    out = ptxas_report(skernel.library_path(), short)
+    if not out:
+        fail("the scan library's build log names no mamba1_scan_kernel instance")
+    return out
+
+
 def wgmma_sass(fkernel, cuda_tool) -> dict:
     """HGMMA instructions in the SASS of each instance of the wgmma kernel
     (``cuobjdump -sass`` on the built library), with ptxas's registers and
@@ -431,18 +470,9 @@ def wgmma_sass(fkernel, cuda_tool) -> dict:
             out[cur]["hgmma"] += 1
     if sorted(out) != ["hd128", "hd64"] or min(r["hgmma"] for r in out.values()) == 0:
         fail(f"the wgmma kernel's SASS holds no HGMMA: {out}")
-    cur = None
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"Function properties for (\S+)", line)
-        if m:
-            cur = short(m.group(1))
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if cur in out and m:
-            out[cur].update(spill_store_bytes=int(m.group(1)), spill_load_bytes=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if cur in out and m:
-            out[cur]["registers"] = int(m.group(1))
+    for name, report in ptxas_report(lib, short).items():
+        if name in out:
+            out[name].update(report)
     return out
 
 
@@ -595,7 +625,7 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
                 q, k, v, qp, kp, spec, force_simt=True), reps=10, warmup=2)
             res["occupancy"] = fkernel.wgmma_occupancy(hd, skv)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if name == "prefill_bf16":
+        if name in ("prefill_bf16", "prefill_f32"):
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, is_causal=True, enable_gqa=True)
         elif name == "decode_bf16":  # the mask as a boolean argument, built outside
@@ -612,19 +642,32 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
         del q, k, v, got, want
 
     scan = {}
-    scan_cases = [("prefill_bf16", (4, 2048, 8192, 16), bf16, False),
-                  ("decode_bf16", (4, 1, 8192, 16), bf16, True),
-                  ("prefill_f32", (2, 512, 1024, 16), f32, True),
-                  ("odd_f32", (3, 77, 1000, 8), f32, True)]
-    for idx, (name, (b, s, di, n), dtype, with_h0) in enumerate(scan_cases):
+    # name, (B, S, DI, N), dtype, with h0, a drawn per (channel, state) and b / c
+    # as strided slices of one (B, S, 256 + 2N) tensor, as models/ssm.py passes
+    # them (else a = -(1..N) and contiguous b / c)
+    scan_cases = [("prefill_bf16", (4, 2048, 8192, 16), bf16, False, False),
+                  ("decode_bf16", (4, 1, 8192, 16), bf16, True, False),
+                  ("prefill_f32", (2, 512, 1024, 16), f32, True, False),
+                  ("odd_f32", (3, 77, 1000, 8), f32, True, False),
+                  ("prefill_bf16_rand_a", (4, 2048, 8192, 16), bf16, False, True),
+                  ("long_bf16", (1, 8192, 2048, 16), bf16, True, False),
+                  ("n32_f32", (2, 300, 512, 32), f32, True, False)]
+    for idx, (name, (b, s, di, n), dtype, with_h0, model_like) in enumerate(scan_cases):
         rng = np.random.default_rng(200 + idx)
         dev = "cuda"
         x = torch.as_tensor(rng.normal(size=(b, s, di)).astype(np.float32), device=dev).to(dtype)
         dt = torch.as_tensor(rng.uniform(0.001, 0.1, (b, s, di)).astype(np.float32),
                              device=dev).to(dtype)
-        a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(di, n).contiguous()
-        bm, cm = (torch.as_tensor(rng.normal(size=(b, s, n)).astype(np.float32),
-                                  device=dev).to(dtype) for _ in range(2))
+        if model_like:
+            a = -torch.as_tensor(np.exp(rng.uniform(np.log(1.0), np.log(16.0), (di, n)))
+                                 .astype(np.float32), device=dev)
+            proj = torch.as_tensor(rng.normal(size=(b, s, 256 + 2 * n)).astype(np.float32),
+                                   device=dev).to(dtype)
+            _, bm, cm = proj.split([256, n, n], dim=-1)
+        else:
+            a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(di, n).contiguous()
+            bm, cm = (torch.as_tensor(rng.normal(size=(b, s, n)).astype(np.float32),
+                                      device=dev).to(dtype) for _ in range(2))
         h0 = (torch.as_tensor(rng.normal(size=(b, di, n)).astype(np.float32), device=dev)
               if with_h0 else None)
         y, h = sops.mamba1_scan(x, dt, a, bm, cm, h0=h0, impl="kernel")
@@ -640,16 +683,28 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
             fail(f"mamba1_scan {name}: final state {rel_h:.3e} of scale from the plain version")
         bound, bound_by = scan_bound(x, bm, cm, h0)
         res = {"shape": [b, s, di, n], "dtype": str(dtype), "h0": with_h0,
-               "max_abs_err": max(err_y, err_h), "err_of_scale": rel_y,
-               "state_err_of_scale": rel_h, "tol_of_scale": tol,
+               "model_like": model_like, "max_abs_err": max(err_y, err_h),
+               "err_of_scale": rel_y, "state_err_of_scale": rel_h, "tol_of_scale": tol,
                "bound_ms": bound, "bound_by": bound_by}
-        if name in ("prefill_bf16", "decode_bf16"):
-            reps = 10 if name == "prefill_bf16" else 200
+        if name in ("prefill_bf16", "decode_bf16", "prefill_bf16_rand_a"):
+            reps = 200 if s == 1 else 10
             res["ms"] = cuda_ms(torch, lambda: sops.mamba1_scan(
                 x, dt, a, bm, cm, h0=h0, impl="kernel"), reps=reps, warmup=2)
             res["plain_ms"] = cuda_ms(torch, lambda: sops.mamba1_scan(
                 x, dt, a, bm, cm, h0=h0, impl="chunked"),
-                reps=2 if name == "prefill_bf16" else 50, warmup=1)
+                reps=50 if s == 1 else 2, warmup=1)
+        if name == "decode_bf16":
+            # Back-to-back wrapper calls are host-bound; the device's own time
+            # per call is the profiler's sum over 64 calls, every kernel the
+            # wrapper launched included, over the scan launches it recorded
+            # (it can miss events at the start of a window).
+            prof = profile_window(torch, lambda: [sops.mamba1_scan(
+                x, dt, a, bm, cm, h0=h0, impl="kernel") for _ in range(64)])
+            seen = sum(t["count"] for t in prof["top"] if "mamba1_scan_kernel" in t["name"])
+            if seen == 0:
+                fail("mamba1_scan decode: the profiler recorded no scan kernel")
+            res.update(device_ms=prof["device_busy_ms"] / seen, profiled_launches=seen,
+                       device_launches_per_call=prof["device_launches"] / seen)
         scan[name] = res
         del x, dt, y, y_want
     torch.cuda.empty_cache()
@@ -945,13 +1000,16 @@ def main(argv=None) -> int:
     sass = wgmma_sass(fkernel, _build.cuda_tool)
     print(f"phase 5 wgmma kernel SASS (HGMMA instructions, ptxas registers and spills): "
           f"{json.dumps(sass)}")
+    scan_regs = scan_ptxas(skernel)
+    print(f"phase 5 scan kernel (ptxas registers and spills per instance <type, G>): "
+          f"{json.dumps(scan_regs)}")
 
     t0 = time.perf_counter()
     lm_kres = phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel)
     for kname, cases in lm_kres.items():
         print(f"phase 6 {kname} vs plain: " + json.dumps(
-            {c: {k: r[k] for k in ("err_of_scale", "ms", "simt_ms", "plain_ms", "bound_ms",
-                                   "library_ms") if k in r}
+            {c: {k: r[k] for k in ("err_of_scale", "state_err_of_scale", "ms", "device_ms",
+                                   "simt_ms", "plain_ms", "bound_ms", "library_ms") if k in r}
              for c, r in cases.items()}))
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
 
@@ -1024,6 +1082,8 @@ def main(argv=None) -> int:
         "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
         "bound_by": dec["bound_by"], "library_ms": dec["library_ms"], "shape": dec["shape"],
         "prefill": {"shape": pre["shape"], "ms": pre["simt_ms"], "bound_ms": pre["bound_ms"]},
+        "prefill_f32": {k: fa["prefill_f32"][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })
     line.append({
         "name": "flash_attention_wgmma", "route": "cuda",
@@ -1048,7 +1108,13 @@ def main(argv=None) -> int:
         "max_abs_err": max(r["max_abs_err"] for r in sc.values()),
         "ms": pre["ms"], "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
         "bound_by": pre["bound_by"], "library_ms": None, "shape": pre["shape"],
-        "decode": {k: dec[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "decode": {k: dec[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                                       "bound_by")},
+        "model_like_ms": sc["prefill_bf16_rand_a"]["ms"],
+        "registers": max(r["registers"] for r in scan_regs.values()),
+        "spill_bytes": sum(r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
+                           for r in scan_regs.values()),
+        "ptxas": scan_regs,
     })
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
@@ -1056,6 +1122,7 @@ def main(argv=None) -> int:
             "card": smi, "torch": torch.__version__, "build_s": build_s, "kernels": kres,
             "main_path": main_res, "training_ms": train_ms, "profile": prof,
             "parity": parity, "lm_build_s": lm_build_s, "wgmma_sass": sass,
+            "scan_ptxas": scan_regs,
             "lm_kernels": lm_kres,
             "serve": serve_res, "lm_parity": lm_parity}, indent=1))
     print(json.dumps({"kernels": line}))

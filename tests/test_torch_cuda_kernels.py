@@ -147,3 +147,40 @@ def test_mamba1_scan_matches_plain_version(card, shape, dtype):
         assert y.dtype == dtype and h.dtype == torch.float32
         _close(y, y_want, 2e-4 if dtype == torch.float32 else 2e-2)
         _close(h, h_want, 2e-4)
+
+
+# (B, S, DI, N, x type, b / c type, with h0): b and c as strided slices of
+# one (B, S, 256 + 2N) tensor, as the models pass the x_proj product; N up
+# to 32; decode (S = 1) from h0; DI not a multiple of the kernel's 32
+# channels a block, bf16 rows that are not 16-byte aligned (DI 300), states
+# that are not a multiple of 4 (N 5, 24).
+SCAN_STRIDED_CASES = [
+    (4, 1, 1024, 16, torch.bfloat16, torch.bfloat16, True),
+    (2, 70, 1000, 16, torch.bfloat16, torch.bfloat16, True),
+    (2, 70, 1000, 16, torch.float32, torch.float32, False),
+    (2, 300, 512, 32, torch.float32, torch.float32, True),
+    (1, 33, 96, 32, torch.bfloat16, torch.bfloat16, True),
+    (2, 45, 300, 5, torch.bfloat16, torch.bfloat16, True),
+    (2, 1, 77, 24, torch.float32, torch.bfloat16, True),
+    (1, 100, 64, 8, torch.bfloat16, torch.float32, False),
+]
+
+
+@pytest.mark.parametrize("case", SCAN_STRIDED_CASES, ids=str)
+def test_mamba1_scan_strided_bc_matches_plain_version(card, case):
+    b, s, di, n, dtype, bc_dtype, with_h0 = case
+    rng = np.random.default_rng(11)
+    f = lambda *sh: torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=card)  # noqa: E731
+    x = f(b, s, di).to(dtype)
+    dt = torch.as_tensor(rng.uniform(0.001, 0.1, (b, s, di)).astype(np.float32),
+                         device=card).to(dtype)
+    a = -torch.as_tensor(np.exp(rng.uniform(0.0, np.log(16.0), (di, n))).astype(np.float32),
+                         device=card)
+    _, bm, cm = f(b, s, 256 + 2 * n).to(bc_dtype).split([256, n, n], dim=-1)
+    assert not bm.is_contiguous() and bm.stride(-1) == 1
+    h0 = f(b, di, n) if with_h0 else None
+    y, h = sops.mamba1_scan(x, dt, a, bm, cm, h0=h0)
+    y_want, h_want = mamba1_scan_ref(x, dt, a, bm, cm, h0=h0)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    _close(y, y_want, 2e-4 if dtype == torch.float32 else 2e-2)
+    _close(h, h_want, 2e-4)

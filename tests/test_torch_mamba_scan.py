@@ -98,3 +98,77 @@ def test_dispatch_and_refusals():
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.mamba1_scan_cuda(x, dt, a, bm, cm)
     assert tkernel.launches == before
+
+
+# (B, S, DI, N): b and c as strided slices of one (B, S, r + 2N) tensor, as
+# models/ssm.py passes the x_proj product to the scan, prefill and decode.
+STRIDED_SHAPES = [(2, 64, 32, 16), (1, 40, 24, 8), (2, 1, 32, 16)]
+
+
+@pytest.mark.parametrize("shape", STRIDED_SHAPES, ids=str)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_strided_bfloat16_bc_match_jax(shape, x_dtype):
+    """b / c as strided bf16 slices (r = 12) through ``ops.mamba1_scan``
+    (chunked and ref) against the JAX ``mamba1_scan_ref`` on the same bf16
+    values. y within 2e-4 (2e-2 where x and dt are bf16, as
+    ``test_bfloat16_inputs_keep_their_type``), the float32 state within 2e-4."""
+    b, s, di, n = shape
+    x, dt, a, _, _, h0 = _inputs(shape, 23, s == 1)
+    proj = np.random.default_rng(29).normal(size=(b, s, 12 + 2 * n)).astype(np.float32)
+    tproj = torch.as_tensor(proj).bfloat16()
+    _, tb, tc = tproj.split([12, n, n], dim=-1)
+    assert not tb.is_contiguous() and tb.stride() == (s * (12 + 2 * n), 12 + 2 * n, 1)
+    tx, tdt = (torch.as_tensor(v).to(x_dtype) for v in (x, dt))
+    th0 = torch.as_tensor(h0) if h0 is not None else None
+    jx, jdt = (jnp.asarray(v, jnp.bfloat16 if x_dtype == torch.bfloat16 else jnp.float32)
+               for v in (x, dt))
+    jproj = jnp.asarray(proj, jnp.bfloat16)
+    y_want, h_want = j_scan_ref(jx, jdt, jnp.asarray(a), jproj[..., 12:12 + n],
+                                jproj[..., 12 + n:], h0=None if h0 is None else jnp.asarray(h0))
+    tol_y = TOL if x_dtype == torch.float32 else 2e-2
+    for impl in ("chunked", "ref"):
+        y, h = tops.mamba1_scan(tx, tdt, torch.as_tensor(a), tb, tc, h0=th0, chunk=16,
+                                impl=impl)
+        assert y.dtype == x_dtype and h.dtype == torch.float32
+        np.testing.assert_allclose(y.float().numpy(), np.asarray(y_want, np.float32),
+                                   rtol=tol_y, atol=tol_y)
+        _close(h, h_want)
+
+
+def test_kernel_wrapper_refuses_what_it_cannot_read():
+    """The kernel reads b and c in their own type with their own B and S
+    strides, but needs float32 or bfloat16, one type for both and a unit
+    stride along N; anything else raises before a launch (no copy, no
+    fallback), as a CPU tensor does."""
+    x, dt, a, bm, cm, _ = (torch.as_tensor(v) if v is not None else None
+                           for v in _inputs((1, 8, 16, 4), 2, False))
+    before = dict(tkernel.launches)
+    with pytest.raises(TypeError, match="b and c"):
+        tkernel.mamba1_scan_cuda(x, dt, a, bm.half(), cm.half())
+    with pytest.raises(TypeError, match="b and c"):
+        tkernel.mamba1_scan_cuda(x, dt, a, bm.bfloat16(), cm)
+    wide = torch.as_tensor(np.random.default_rng(3).normal(size=(1, 8, 4, 2)).astype(np.float32))
+    with pytest.raises(ValueError, match="unit stride along N"):
+        tkernel.mamba1_scan_cuda(x, dt, a, wide[..., 0], cm)
+    with pytest.raises(ValueError, match="CUDA"):  # strided bf16 slices pass the checks
+        proj = torch.zeros((1, 8, 3 + 8), dtype=torch.bfloat16)
+        tkernel.mamba1_scan_cuda(x, dt, a, proj[..., 3:7], proj[..., 7:])
+    assert tkernel.launches == before
+
+
+def test_kernel_source_and_build_flags():
+    """The Hopper design the kernel source commits to: one MUFU.EX2 per
+    exponential (ex2.approx.ftz, not expf), x / dt through cp.async, y
+    summed over a lane group with shuffles, b / c read in their own type with
+    their own strides; built with ptxas's report and nvcc's default
+    contraction (never --fmad=false), keyed by source and flags."""
+    from repro_torch.kernels import _build
+    text = tkernel.SOURCES[0].read_text()
+    for needle in ("int mamba1_scan_launch(", "ex2.approx.ftz.f32", "cp.async.cg.shared.global",
+                   "__shfl_xor_sync", "long long b_sb, long long b_ss", "int bc_dtype"):
+        assert needle in text, needle
+    assert "expf(" not in text
+    assert "-v" in tkernel.EXTRA_FLAGS and "--fmad=false" not in tkernel.EXTRA_FLAGS
+    assert tkernel.library_path() == _build.library_path("mamba1_scan", tkernel.SOURCES,
+                                                         tkernel.EXTRA_FLAGS)
+    assert tkernel.library_path() != _build.library_path("mamba1_scan", tkernel.SOURCES)
