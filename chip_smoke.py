@@ -8,11 +8,15 @@ Phases, each fatal on failure:
      sm_90a) and time the build;
   2. hold each kernel bit for bit against its plain PyTorch version on the
      card, at the main path's shapes and at 4096 x 64, on dense, masked,
-     integer-tied, batched (K = 4) and NaN-holding inputs, and time both;
-  3. drive the main path -- ``run(cfg, LDS, T)`` and ``run(cfg, DS, T)`` at
-     N = 1024 CUs x M = 32 ECs with the paper's Sec. IV-C simulation
-     constants -- check the kernel launch counts, finite records and the
-     per-slot feasibility invariants;
+     integer-tied, batched (K = 4) and NaN-holding inputs (the collection
+     also on near ties: weights one ulp apart that round to equal gains),
+     and time both (the collection also per selection);
+  3. check the keyed network sampler on the card (padded and unpadded
+     slices draw the same true block, bit for bit; the card draws the CPU's
+     bits), then drive the main path -- ``run(cfg, LDS, T)`` and
+     ``run(cfg, DS, T)`` at N = 1024 CUs x M = 32 ECs with the paper's
+     Sec. IV-C simulation constants -- check the kernel launch counts,
+     finite records and the per-slot feasibility invariants;
   4. run two L-DS slots from the same state and network on the card (with
      the kernels) and on the CPU (with the plain versions) and compare;
   5. build the flash-attention and Mamba-1 scan CUDA kernels (all three
@@ -27,6 +31,7 @@ Phases, each fatal on failure:
      a drawn per (channel, state) and b / c as strided bf16 slices of one
      x_proj-shaped tensor as the model passes them, at S = 1 with h0, over
      8192 steps and at N = 32; windows, soft-cap, prefix, ragged lengths,
+     8,192 and 32,768 keys,
      hd 64 / 80 / 128, Hkv 1 / 2 / 8, rows that see no key, in bf16 and
      float32), check which attention kernel each case launched, and time
      kernel, plain version and, for attention, torch's
@@ -114,7 +119,14 @@ def kernel_inputs(torch, op: str, shape, case: str, seed: int):
     rng = np.random.default_rng(seed)
     n, m = shape
     lead = (4,) if case == "batched" else ()
-    if op == "pairing":
+    if op == "collection" and case == "near_tie":
+        # Each EC column holds weights in [12, 16) at most 7 ulps apart;
+        # under penalties up to about 4.5, weights one ulp apart round to
+        # the same gain (round-half-even), and the lower row must win.
+        base = rng.uniform(12.0, 15.9, m).astype(np.float32).view(np.int32)
+        w = (base[None, :] + rng.integers(0, 8, (n, m)).astype(np.int32)).view(np.float32)
+        args = [w]
+    elif op == "pairing":
         if case == "ties":
             solo = rng.integers(-2, 6, (*lead, m)).astype(np.float32)
             pair = rng.integers(-2, 8, (*lead, m, m)).astype(np.float32)
@@ -181,7 +193,7 @@ def phase_kernels(torch, ops, kernel, ref):
         max_err = 0.0
         for shape in (MAIN_SHAPE, BIG_SHAPE):
             pshape = (shape[1], shape[1]) if op == "pairing" else shape
-            for c, case in enumerate(cases):
+            for c, case in enumerate(cases + (("near_tie",) if op == "collection" else ())):
                 args, masks = kernel_inputs(torch, op, pshape, case, 1000 * idx + 10 * c + shape[1])
                 got = op_call(ops, op, args, masks, "kernel")
                 want = op_call(ops, op, args, masks, "ref")
@@ -231,6 +243,8 @@ def phase_kernels(torch, ops, kernel, ref):
             timing[label] = {
                 "shape": [n, m], "selections": takes, "ops_needed": ops_needed,
                 "ms": k_ms, "plain_ms": p_ms,
+                # The selections taken plus the step that finds no gain.
+                "us_per_selection": k_ms * 1e3 / (takes + 1),
                 "bound_ms": max(bound_bytes, bound_ops),
                 "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             }
@@ -264,6 +278,45 @@ def check_feasible(torch, dec, net, queues, rho: float) -> None:
     bad = [k for k, ok in conds.items() if not ok]
     if bad:
         fail(f"decision infeasible: {bad}")
+
+
+def phase_sampler(torch, core, network):
+    """The keyed sampler on the card: a slice padded from (10, 4) to
+    (12, 5) and from 1024 x 32 to 1040 x 40 draws its heterogeneity and
+    network state bit-identically on the true block; the card draws the
+    CPU's 32-bit words at 1024 x 32; host ms of one slot's draw."""
+    out = {}
+    for true, pad in (((10, 4), (12, 5)), (MAIN_SHAPE, (1040, 40))):
+        cfg = sim_config(core, *true)
+        shape = core.ShapeConfig(*pad)
+        params = core.SliceParams.from_config(cfg, pad_shape=shape)
+        st = core.init_state(cfg)
+        stp = core.init_state(shape, params, seed=cfg.seed)
+        pairs = [(f"het.{f}", getattr(st.het, f), getattr(stp.het, f)) for f in st.het._fields]
+        for t in (0, 5):
+            st, stp = st._replace(t=torch.full_like(st.t, t)), stp._replace(t=torch.full_like(stp.t, t))
+            net, netp = core.slot_network(cfg, st), core.slot_network(shape, stp, params)
+            pairs += [(f"t{t}.{f}", getattr(net, f), getattr(netp, f)) for f in net._fields]
+        for name, a, b in pairs:
+            if not torch.equal(a, b[tuple(slice(0, s) for s in a.shape)]):
+                fail(f"sampler: {name} differs on the true block of {true} padded to {pad}")
+        out[f"{true[0]}x{true[1]}->{pad[0]}x{pad[1]}"] = {"bit_equal": True,
+                                                          "compared": len(pairs)}
+    draws = network.slot_draws(*MAIN_SHAPE)
+    bits = network.uniform_bits(torch.tensor(12345, device="cuda"), 3, draws)
+    if not torch.equal(bits.cpu(), network.uniform_bits(12345, 3, draws, device="cpu")):
+        fail("sampler: the card's Threefry words differ from the CPU's")
+    cfg = sim_config(core, *MAIN_SHAPE)
+    st = core.init_state(cfg)
+    core.slot_network(cfg, st)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        core.slot_network(cfg, st)
+    torch.cuda.synchronize()
+    out["cpu_equal_words"] = int(bits.numel())
+    out["slot_draw_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    return out
 
 
 def phase_main_path(torch, core, kernel, metrics):
@@ -572,8 +625,11 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
     attn_cases.append(("window_bf16_hd64", (2, 1024, 1024, 16, 8, 64), bf16,
                        AttnSpec(window=256), False))
     # The wgmma kernel rounds P to bf16 before P V (the plain version keeps
-    # float32): 8192 keys feeding every row show the error stays in bounds.
+    # float32): 8192 and 32,768 keys (the JAX package's prefill_32k length)
+    # feeding every row show the error stays in bounds.
     attn_cases += [(f"long_bf16_noncausal_hd{hd}", (1, 256, 8192, 8, 2, hd), bf16,
+                    AttnSpec(causal=False), False) for hd in (64, 128)]
+    attn_cases += [(f"long32k_bf16_noncausal_hd{hd}", (1, 256, 32768, 8, 2, hd), bf16,
                     AttnSpec(causal=False), False) for hd in (64, 128)]
     attn = {}
     for idx, (name, (b, sq, skv, h, hkv, hd), dtype, spec, decode) in enumerate(attn_cases):
@@ -936,7 +992,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch import bridge, configs, core, models
-    from repro_torch.core import metrics, training_alloc
+    from repro_torch.core import metrics, network, training_alloc
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
@@ -973,8 +1029,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kres = phase_kernels(torch, ops, kernel, ref)
     print(f"phase 2 kernels vs plain: all bit-equal ({time.perf_counter() - t0:.1f} s)")
+    for label, tm in kres["collection"]["timing"].items():
+        print(f"phase 2 greedy_collection {label} {tm['shape']}: {tm['ms']:.5g} ms, "
+              f"{tm['selections']} selections, {tm['us_per_selection']:.5g} us a selection "
+              f"(plain {tm['plain_ms']:.5g} ms)")
 
     t0 = time.perf_counter()
+    sampler = phase_sampler(torch, core, network)
+    print(f"phase 3 keyed sampler on the card: {json.dumps(sampler)}")
     cfg, main_res, final = phase_main_path(torch, core, kernel, metrics)
     train_ms = time_training(torch, core, training_alloc, cfg, *final["l-ds"])
     for name, r in main_res.items():
@@ -1062,6 +1124,7 @@ def main(argv=None) -> int:
             "max_abs_err": r["max_abs_err"], "ms": tm["ms"], "kernel_ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": None, "shape": tm["shape"],
+            "selections": tm["selections"], "us_per_selection": tm["us_per_selection"],
             "bit_equal": all(c["bit_equal"] for c in r["checks"]),
             "big": r["timing"]["big"],
         })
@@ -1120,7 +1183,8 @@ def main(argv=None) -> int:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
             "card": smi, "torch": torch.__version__, "build_s": build_s, "kernels": kres,
-            "main_path": main_res, "training_ms": train_ms, "profile": prof,
+            "sampler": sampler, "main_path": main_res, "training_ms": train_ms,
+            "profile": prof,
             "parity": parity, "lm_build_s": lm_build_s, "wgmma_sass": sass,
             "scan_ptxas": scan_regs,
             "lm_kernels": lm_kres,

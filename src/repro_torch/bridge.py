@@ -10,10 +10,10 @@ type is recognised by its set of fields. Two fields differ from the JAX
     (``link_het``, ``ec_het``, ``phase_d``, ``phase_D``), for example
     computed on the JAX side with ``repro.core.network.heterogeneity``;
   * ``rng`` may be an int seed or an integer array (such as a JAX key),
-    whose words seed a fresh ``torch.Generator`` on the target device.
+    whose 32-bit words, most significant first, make the port's run seed
+    (an int64 0-d tensor, cut to 63 bits).
 
-``to_numpy`` is the inverse; it writes a generator as its initial seed, so
-the generator's position is not carried.
+``to_numpy`` is the inverse (the seed comes back as an int64 0-d array).
 
 ``lm_params_from_numpy`` builds a port language model from the JAX
 package's parameter tree (``model.init(key)`` as numpy).
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .core.types import (Decision, Heterogeneity, Multipliers, NetworkState,
-                         QueueState, SchedulerState, SliceParams, make_generator)
+                         QueueState, SchedulerState, SliceParams, seed_tensor)
 
 _TYPES = (SchedulerState, SliceParams, NetworkState, Multipliers, QueueState,
           Decision, Heterogeneity)
@@ -66,7 +66,7 @@ def from_numpy(tree: Mapping[str, Any], device: str | torch.device):
         if value is None:
             kw[name] = None
         elif name == "rng":
-            kw[name] = make_generator(_seed_of(value), device)
+            kw[name] = seed_tensor(_seed_of(value), device)
         elif isinstance(value, Mapping):
             kw[name] = from_numpy(value, device)
         else:
@@ -110,11 +110,9 @@ def lm_params_from_numpy(cfg, tree: Mapping[str, Any], device: str | torch.devic
 
 def to_numpy(obj: Any):
     """Nested dict of numpy arrays for a port container (the inverse of
-    ``from_numpy``, generators written as their initial seed)."""
+    ``from_numpy``)."""
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu().numpy()
-    if isinstance(obj, torch.Generator):
-        return obj.initial_seed()
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return {f: to_numpy(getattr(obj, f)) for f in obj._fields}
     if obj is None:

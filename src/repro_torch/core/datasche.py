@@ -2,7 +2,7 @@
 
 Counterpart of ``repro.core.datasche``. Each slot:
 
-  1. observe the network state S(t) (or sample it from the state's generator),
+  1. observe the network state S(t) (or sample it, keyed by the state's seed and t),
   2. solve the collection subproblem  -> alpha, theta      (P1' / P1 / full)
   3. solve the training subproblem    -> x, y, z           (P2' / linear / ...)
   4. execute: update queues Q, R, cumulative Omega and the framework cost,
@@ -367,18 +367,12 @@ def _affine(a: Multipliers, b: Multipliers, shift: torch.Tensor) -> Multipliers:
     return Multipliers(*[x + y - shift for x, y in zip(a, b)])
 
 
-def _fork(g: torch.Generator) -> torch.Generator:
-    h = torch.Generator(device=g.device)
-    h.set_state(g.get_state())
-    return h
-
-
 def slot_network(cfg: CocktailConfig | ShapeConfig, state: SchedulerState,
                  params: Optional[SliceParams] = None) -> NetworkState:
-    """The network state ``step`` samples for ``state`` when none is given
-    (the input state is left unchanged)."""
+    """The network state ``step`` samples for ``state`` when none is given:
+    a pure function of the state (run seed, slot ``t``, heterogeneity)."""
     shape, params = split_config(cfg, params, state.device)
-    return sample_network_state(_fork(state.rng), shape, state.t, params, het=state.het)
+    return sample_network_state(state.rng, shape, state.t, params, het=state.het)
 
 
 def step(cfg: CocktailConfig | ShapeConfig, spec: AlgoSpec, state: SchedulerState,
@@ -386,18 +380,16 @@ def step(cfg: CocktailConfig | ShapeConfig, spec: AlgoSpec, state: SchedulerStat
          params: Optional[SliceParams] = None
          ) -> tuple[SchedulerState, SlotRecord, Decision]:
     """Run one slot on the state's device. ``net`` injects the network
-    state; otherwise it is sampled from a fork of ``state.rng`` (the input
-    state is left unchanged; the new state carries the advanced fork)."""
+    state; otherwise it is ``slot_network(cfg, state)``, keyed by the run
+    seed ``state.rng`` and the slot ``state.t``."""
     if spec.switched:
         raise NotImplementedError(
             f"spec {spec.name!r} uses branch-free (SWITCHED) dispatch, which the "
             "PyTorch port adds with fleets (core/fleet.py) in a later slice; "
             "use a static spec such as DS or LDS")
     shape, params = split_config(cfg, params, state.device)
-    rng = state.rng
     if net is None:
-        rng = _fork(state.rng)
-        net = sample_network_state(rng, shape, state.t, params, het=state.het)
+        net = slot_network(shape, state, params)
 
     use_lsa = spec.use_lsa
     if spec.learning_aid:
@@ -436,7 +428,7 @@ def step(cfg: CocktailConfig | ShapeConfig, spec: AlgoSpec, state: SchedulerStat
         total_cost=state.total_cost + cost,
         total_trained=state.total_trained + trained,
         uploaded=state.uploaded + torch.sum(served, dim=1),
-        rng=rng,
+        rng=state.rng,
         het=state.het,
     )
     rec = SlotRecord(cost=cost, trained=trained,

@@ -15,9 +15,10 @@ Decisions per slot:
   z[j,k] in {0,1}      EC j paired with EC k            (constraint 5)
 
 Every container is a ``NamedTuple`` of float32 tensors that live on one
-explicit device. Randomness is carried as an explicit ``torch.Generator``
-(``SchedulerState.rng``); the persistent network heterogeneity is drawn once
-at ``init_state`` and carried unchanged (``SchedulerState.het``).
+explicit device. Randomness is carried as the run seed (``SchedulerState.rng``,
+an int64 0-d tensor) that keys the sampler of ``network``; the persistent
+network heterogeneity is drawn once at ``init_state`` and carried unchanged
+(``SchedulerState.het``).
 """
 from __future__ import annotations
 
@@ -287,10 +288,10 @@ class Decision(NamedTuple):
 class SchedulerState(NamedTuple):
     """Full state carried slot to slot by DataSche / L-DS.
 
-    ``rng`` draws the per-slot noise; ``step`` forks it before drawing, so a
-    state is never changed by the slot that reads it. ``het`` is the
-    persistent heterogeneity, carried unchanged (the JAX package carries the
-    key it is drawn from instead)."""
+    ``rng`` is the run seed: with the slot counter ``t`` it keys the slot's
+    noise, so it is carried unchanged and a state is never changed by the
+    slot that reads it. ``het`` is the persistent heterogeneity, carried
+    unchanged (the JAX package carries the key it is drawn from instead)."""
 
     queues: QueueState
     mults: Multipliers
@@ -299,7 +300,7 @@ class SchedulerState(NamedTuple):
     total_cost: torch.Tensor  # () accumulated framework cost
     total_trained: torch.Tensor  # () accumulated |D(t)|
     uploaded: torch.Tensor  # (N,) cumulative per-CU uploads (Fig. 5 metric)
-    rng: torch.Generator  # per-slot network noise
+    rng: torch.Tensor  # () int64 run seed, keys the per-slot network noise
     het: Heterogeneity  # persistent heterogeneity
 
     @property
@@ -313,17 +314,18 @@ _HET_FOLD = 0x48455400
 
 
 def het_seed(seed: int) -> int:
-    """Seed of the generator that draws the persistent heterogeneity: a hash
-    of (run seed, salt), so the two streams never coincide. Hashed rather
-    than shifted because the CPU generator keeps only a seed's low 32 bits."""
+    """Seed that keys the persistent heterogeneity: a hash of (run seed,
+    salt), so its streams never coincide with the run seed's."""
     digest = hashlib.sha256(f"{int(seed)}:{_HET_FOLD}".encode()).digest()
     return int.from_bytes(digest[:8], "little") & 0x7FFF_FFFF_FFFF_FFFF
 
 
-def make_generator(seed: int, device: torch.device) -> torch.Generator:
-    g = torch.Generator(device=device)
-    g.manual_seed(int(seed) & 0x7FFF_FFFF_FFFF_FFFF)
-    return g
+def seed_tensor(seed: "int | torch.Tensor", device: torch.device) -> torch.Tensor:
+    """A seed as the int64 0-d tensor on ``device`` that keys the sampler
+    (an int is cut to its low 63 bits)."""
+    if isinstance(seed, torch.Tensor):
+        return seed.to(device=device, dtype=torch.int64)
+    return torch.tensor(int(seed) & 0x7FFF_FFFF_FFFF_FFFF, dtype=torch.int64, device=device)
 
 
 def init_state(cfg: "CocktailConfig | ShapeConfig",
@@ -345,14 +347,14 @@ def init_state(cfg: "CocktailConfig | ShapeConfig",
     queues = queues._replace(q=queues.q * cu_mask)
     mults = Multipliers.zeros(shape.n_cu, shape.n_ec, params.q0, params.eps)
     mults = mults._replace(mu=mults.mu * cu_mask)
-    het = heterogeneity(make_generator(het_seed(seed), dev), shape.n_cu, shape.n_ec)
+    het = heterogeneity(het_seed(seed), shape.n_cu, shape.n_ec, dev)
     return SchedulerState(
         queues=queues, mults=mults, emp_mults=mults,
         t=torch.tensor(0, dtype=torch.int32, device=dev),
         total_cost=torch.tensor(0.0, device=dev),
         total_trained=torch.tensor(0.0, device=dev),
         uploaded=torch.zeros((shape.n_cu,), device=dev),
-        rng=make_generator(seed, dev),
+        rng=seed_tensor(seed, dev),
         het=het,
     )
 

@@ -40,7 +40,7 @@ def _library() -> ctypes.CDLL:
         if _lib is None:
             lib = _build.load("greedy_matching", SOURCES, EXTRA_FLAGS)
             vp, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-            lib.greedy_collection_launch.argtypes = [vp, vp, vp, i, i, i, vp, ip]
+            lib.greedy_collection_launch.argtypes = [vp, vp, vp, vp, i, i, i, vp, ip]
             lib.greedy_assignment_launch.argtypes = [vp, vp, i, i, i, vp, ip]
             lib.greedy_pairing_launch.argtypes = [vp, vp, i, i, vp, ip]
             for fn in (lib.greedy_collection_launch, lib.greedy_assignment_launch,
@@ -87,7 +87,9 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def greedy_collection_cuda(logw: torch.Tensor, pen: torch.Tensor) -> torch.Tensor:
-    """logw (K, N, M), pen (N + 1,) -> alpha (K, N, M) in {0,1}."""
+    """logw (K, N, M), pen (N + 1,) -> alpha (K, N, M) in {0,1}. The kernel
+    keeps a column-major copy of each tile, in shared memory where it fits
+    and otherwise in a (K, M, N) scratch allocated here."""
     _check(logw, "greedy_collection logw", 3)
     _check(pen, "greedy_collection pen", 1)
     k, n, m = logw.shape
@@ -96,11 +98,12 @@ def greedy_collection_cuda(logw: torch.Tensor, pen: torch.Tensor) -> torch.Tenso
     alpha = torch.empty_like(logw)
     if logw.numel() == 0:
         return alpha
+    scratch = torch.empty((k, m, n), dtype=logw.dtype, device=logw.device)
     in_smem = ctypes.c_int(0)
     with torch.cuda.device(logw.device):
         err = _library().greedy_collection_launch(
-            logw.data_ptr(), pen.data_ptr(), alpha.data_ptr(), k, n, m, _stream(logw),
-            ctypes.byref(in_smem))
+            logw.data_ptr(), pen.data_ptr(), alpha.data_ptr(), scratch.data_ptr(), k, n, m,
+            _stream(logw), ctypes.byref(in_smem))
     _launched(err, in_smem, "greedy_collection")
     return alpha
 

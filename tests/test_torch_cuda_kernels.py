@@ -12,12 +12,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import network  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fkernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import AttnSpec, attention_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as sops  # noqa: E402
 from repro_torch.kernels.mamba_scan.ref import mamba1_scan_ref  # noqa: E402
+from repro_torch.kernels.matching import kernel as mkernel  # noqa: E402
+from repro_torch.kernels.matching import ops as mops  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -76,6 +79,9 @@ WGMMA_CASES = [
     (1, 333, 555, 4, 2, AttnSpec(window=256), False),
     (2, 64, 777, 8, 1, AttnSpec(causal=False), True),
     (1, 128, 8192, 4, 2, AttnSpec(causal=False), False),
+    # P is rounded to bf16 before P V: 32,768 keys feeding every row (the
+    # JAX package's prefill_32k length).
+    (1, 256, 32768, 8, 2, AttnSpec(causal=False), False),
 ]
 BF16_TOL_OF_SCALE = 8e-3  # two bf16 roundings of the value, as chip_smoke.py
 
@@ -184,3 +190,63 @@ def test_mamba1_scan_strided_bc_matches_plain_version(card, case):
     assert y.dtype == dtype and h.dtype == torch.float32
     _close(y, y_want, 2e-4 if dtype == torch.float32 else 2e-2)
     _close(h, h_want, 2e-4)
+
+
+def collection_logw(rng, shape, case):
+    """Log-weights of the skew-aware collection: log(U(1, 1e6)) with -inf
+    holes (the main path's range), small integers (ties), NaN / inf, or
+    near ties: each EC column holds weights in [12, 16) at most 7 ulps
+    apart, so after the growing penalties pen[count] (up to about 4.5)
+    weights one ulp apart round to the same gain under round-half-even."""
+    n, m = shape
+    lead = (4,) if case == "batched" else ()
+    if case == "ties":
+        return rng.integers(-2, 12, (n, m)).astype(np.float32)
+    if case == "near_tie":
+        base = rng.uniform(12.0, 15.9, m).astype(np.float32).view(np.int32)
+        return (base[None, :] + rng.integers(0, 8, (n, m)).astype(np.int32)).view(np.float32)
+    w = np.log(rng.uniform(1.0, 1e6, (*lead, n, m))).astype(np.float32)
+    w[rng.random(w.shape) < 0.2] = -np.inf
+    if case == "nan":
+        w[rng.random(w.shape) < 0.01] = np.nan
+        w[rng.random(w.shape) < 0.01] = np.inf
+    return w
+
+
+@pytest.mark.parametrize("case", ["dense", "masked", "ties", "nan", "batched", "near_tie"])
+@pytest.mark.parametrize("shape", [(1024, 32), (4096, 64), (333, 7)], ids=str)
+def test_greedy_collection_matches_plain_version(card, shape, case):
+    """The collection kernel (cached column maxima) against its plain
+    version on the card, bit for bit: alpha and theta, one launch a call."""
+    rng = np.random.default_rng(sum(shape) + len(case))
+    logw = torch.as_tensor(collection_logw(rng, shape, case), device=card)
+    masks = {}
+    if case == "masked":
+        cu = (rng.random(shape[0]) > 0.3).astype(np.float32)
+        ec = (rng.random(shape[1]) > 0.3).astype(np.float32)
+        cu[0] = ec[0] = 1.0
+        masks = {"cu_mask": torch.as_tensor(cu, device=card),
+                 "ec_mask": torch.as_tensor(ec, device=card)}
+    before = mkernel.launches["greedy_collection"]
+    alpha, theta = mops.greedy_collection(logw, impl="kernel", **masks)
+    assert mkernel.launches["greedy_collection"] == before + 1
+    want_alpha, want_theta = mops.greedy_collection(logw, impl="ref", **masks)
+    assert torch.equal(alpha, want_alpha) and torch.equal(theta, want_theta)
+    assert float(alpha.sum()) > 0
+    assert mkernel.tile_in_smem["greedy_collection"] == (shape != (4096, 64))
+
+
+def test_sampler_draws_the_same_bits_on_card_and_cpu(card):
+    """The keyed sampler's 32-bit words, its uniforms and the heterogeneity
+    are bit-identical on the card and on the CPU, at the main path's
+    1024 x 32 slot."""
+    draws = network.slot_draws(1024, 32)
+    seed, t = 123456789012345, 17
+    bits_c = network.uniform_bits(torch.tensor(seed, device=card), t, draws)
+    assert torch.equal(bits_c.cpu(), network.uniform_bits(seed, t, draws, device="cpu"))
+    for a, b in zip(network.uniforms(seed, t, draws, device=card),
+                    network.uniforms(seed, t, draws, device="cpu")):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(network.heterogeneity(7, 1024, 32, device=card),
+                    network.heterogeneity(7, 1024, 32, device="cpu")):
+        assert torch.equal(a.cpu(), b)
