@@ -20,14 +20,19 @@ Phases, each fatal on failure:
   4. run two L-DS slots from the same state and network on the card (with
      the kernels) and on the CPU (with the plain versions) and compare;
   5. build the flash-attention and Mamba-1 scan CUDA kernels (all three
-     libraries are compiled at once, one nvcc each, from phase 1 on),
+     libraries are compiled at once from phase 1 on, one nvcc per source,
+     and are done before phase 3's host-clock timings),
      check with ``cuobjdump -sass`` that the bf16 prefill attention kernel
      runs its products as HGMMA (wgmma) instructions, and print ptxas's
-     registers and spills of the wgmma and scan kernels;
-  6. hold the three LM kernels against their plain PyTorch versions on the
+     registers and spills of the wgmma, decode attention and scan kernels;
+  6. hold the LM kernels against their plain PyTorch versions on the
      card at the LM serving path's shapes (attention prefill B 4 x 2048,
-     H 32 / Hkv 8, hd 128 on the wgmma kernel and decode over a 48-slot
-     cache on the SIMT one; the scan at B 4 x 2048 x 8192 x 16, also with
+     H 32 / Hkv 8, hd 128 on the wgmma kernel; decode on the decode kernel
+     over a 48-slot cache, a half-full 48-slot ring buffer with a window,
+     and 32,768 filled slots at B 4 and at B 128 -- the JAX package's
+     decode_32k shape, a 17.2 GB cache -- each also on the SIMT kernel
+     forced and as device time per call under torch.profiler; the plain
+     version at B 128 over batch slices; the scan at B 4 x 2048 x 8192 x 16, also with
      a drawn per (channel, state) and b / c as strided bf16 slices of one
      x_proj-shaped tensor as the model passes them, at S = 1 with h0, over
      8192 steps and at N = 32; windows, soft-cap, prefix, ragged lengths,
@@ -40,8 +45,10 @@ Phases, each fatal on failure:
      torch.profiler;
   7. serve minitron-4b at full size through ``repro_torch.launch.serve``
      (B 4, prompt 16, 32 generated), then check decode against forward,
-     exact launch counts per forward and per decode step (SIMT attention),
-     and time a B 4 x 2048 prefill (wgmma attention in all 32 layers);
+     exact launch counts per forward (SIMT attention) and per decode step
+     (decode attention), time a B 4 x 2048 prefill (wgmma attention in all
+     32 layers), and time one decode step at B 4 over 32,768 filled cache
+     positions against the same step with the plain attention;
   8. the same for falcon-mamba-7b;
   9. run reduced minitron-4b and falcon-mamba-7b in float32 on the card
      (kernels) and on the CPU (plain versions) and compare the logits.
@@ -500,6 +507,20 @@ def scan_ptxas(skernel) -> dict:
     return out
 
 
+def decode_ptxas(fkernel) -> dict:
+    """Registers and spills of each instance of the decode attention kernel
+    (storage type, padded head dim, q heads a block)."""
+    def short(mangled):  # flash_decode_kernel<T, HDP, GM>
+        m = re.search(r"flash_decode_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)EE", mangled)
+        return (f"{'f32' if m.group(1) == 'f' else 'bf16'}_hd{m.group(2)}_rows{m.group(3)}"
+                if m else None)
+
+    out = ptxas_report(fkernel.library_path(), short)
+    if len(out) != 24:
+        fail(f"the flash library's build log names {len(out)} of the 24 decode kernel instances")
+    return out
+
+
 def wgmma_sass(fkernel, cuda_tool) -> dict:
     """HGMMA instructions in the SASS of each instance of the wgmma kernel
     (``cuobjdump -sass`` on the built library), with ptxas's registers and
@@ -548,10 +569,24 @@ def rel_err(got, want) -> tuple[float, float]:
 
 def attn_inputs(torch, b, sq, skv, h, hkv, hd, dtype, seed, decode=False):
     """q, k, v from a numpy seed; prefill positions are the indices, decode
-    holds one query over a ring buffer with permuted positions and empty
-    slots (position -1, invalid)."""
+    (True) holds one query over a ring buffer with permuted positions and
+    empty slots (position -1, invalid). Decode over a "filled" cache (slots
+    at positions 0 .. Skv - 1, the query at Skv) or a "half" full ring
+    buffer (slots 0 .. Skv / 2 - 1 at their positions, the rest -1, the
+    query at Skv / 2 - 1) draws q, k, v on the card from a seeded generator
+    (32,768 slots at B 128 are 17.2 GB)."""
     rng = np.random.default_rng(seed)
     dev = "cuda"
+    if decode in ("filled", "half"):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        q, k, v = (torch.randn(s, generator=gen, device=dev, dtype=dtype)
+                   for s in ((b, 1, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd)))
+        idx = torch.arange(skv, dtype=torch.int32, device=dev)
+        last = skv if decode == "filled" else skv // 2 - 1
+        kp = (idx if decode == "filled" else torch.where(idx <= last, idx, -1))
+        kp = kp.expand(b, skv).contiguous()
+        qp = torch.full((b, 1), last, dtype=torch.int32, device=dev)
+        return q, k, v, qp, kp, kp >= 0
     q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32), device=dev).to(dtype)
                for s in ((b, sq, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd)))
     if decode:
@@ -566,16 +601,58 @@ def attn_inputs(torch, b, sq, skv, h, hkv, hd, dtype, seed, decode=False):
 
 
 def attn_bound(torch, fref, q, k, v, qp, kp, spec, valid):
-    """Least time for this call: q, k, v, o and the positions moved once,
-    or 4 hd operations per visible (q, kv) pair at the type's peak (bf16 on
-    the tensor cores, float32 on the float32 cores)."""
-    visible = float(fref.attention_mask(qp, kp, spec, valid).sum()) * q.shape[2]
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + \
+    """Least time for this call: q, o, the positions and the validity moved
+    once, and k and v of the keys some query row of the batch row sees (no
+    function need read the rest: empty ring-buffer slots, keys outside the
+    window); or 4 hd operations per visible (q, kv) pair at the type's peak
+    (bf16 on the tensor cores, float32 on the float32 cores)."""
+    mask = fref.attention_mask(qp, kp, spec, valid)  # (B, Sq, Skv)
+    visible = float(mask.sum()) * q.shape[2]
+    seen_keys = float(mask.any(dim=1).sum())  # (batch row, key) pairs
+    nbytes = (2 * q.numel() + 2 * seen_keys * k.shape[2] * k.shape[3]) * q.element_size() + \
         4 * (qp.numel() + kp.numel()) + (valid.numel() if valid is not None else 0)
     peak = H100_BF16_TC_OPS_PER_S if q.dtype == torch.bfloat16 else H100_FP32_OPS_PER_S
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = 4.0 * q.shape[-1] * visible / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), visible
+
+
+def plain_attention(torch, fops, q, k, v, qp, kp, spec, valid, rows_at_once=None):
+    """The plain version (``impl="chunked"``: the grouped exact reference at
+    Sq = 1), over batch slices of ``rows_at_once`` rows where float32 copies
+    of the whole cache would not fit beside it."""
+    n = rows_at_once or q.shape[0]
+    return torch.cat([fops.flash_attention(
+        q[i:i + n], k[i:i + n], v[i:i + n], qp[i:i + n], kp[i:i + n], spec,
+        kv_valid=None if valid is None else valid[i:i + n], impl="chunked")
+        for i in range(0, q.shape[0], n)])
+
+
+def graph_ms_per_call(torch, fn, calls: int, reps: int) -> float:
+    """Device time of one call of ``fn`` (one kernel launch): ``calls``
+    calls captured in a CUDA graph, replayed ``reps`` times between CUDA
+    events. Back-to-back wrapper calls are host-bound at a few microseconds
+    of kernel, so events around eager calls time the host; the graph replays
+    the same launches without it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm the wrapper (its workspace a stream) uncaptured
+        fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [fn() for _ in range(calls)]
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del outs, graph
+    return start.elapsed_time(end) / (calls * reps)
 
 
 def scan_bound(x, b, c, h0):
@@ -631,10 +708,21 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
                     AttnSpec(causal=False), False) for hd in (64, 128)]
     attn_cases += [(f"long32k_bf16_noncausal_hd{hd}", (1, 256, 32768, 8, 2, hd), bf16,
                     AttnSpec(causal=False), False) for hd in (64, 128)]
+    # Decode: a half-full ring buffer with a window (its second tile is all
+    # empty slots and never loaded), and 32,768 filled slots (the JAX
+    # package's decode_32k length) at B 4 and at its batch of 128.
+    attn_cases += [
+        ("decode_ring_bf16", (4, 1, 48, 32, 8, 128), bf16, AttnSpec(window=16), "half"),
+        ("decode32k_b4_bf16", (4, 1, 32768, 32, 8, 128), bf16, AttnSpec(), "filled"),
+        ("decode32k_b128_bf16", (128, 1, 32768, 32, 8, 128), bf16, AttnSpec(), "filled"),
+    ]
+    # minitron-4b's 16-token forward, the SIMT kernel's one launch on a
+    # driven path now that decode has its own kernel.
+    attn_cases.append(("forward16_bf16", (4, 16, 16, 32, 8, 128), bf16, AttnSpec(), False))
     attn = {}
     for idx, (name, (b, sq, skv, h, hkv, hd), dtype, spec, decode) in enumerate(attn_cases):
         q, k, v, qp, kp, valid = attn_inputs(torch, b, sq, skv, h, hkv, hd, dtype, 100 + idx,
-                                             decode is True)
+                                             decode if decode != "masked" else False)
         if decode == "masked":  # one batch row has no valid key; others see some
             valid = torch.ones((b, skv), dtype=torch.bool, device="cuda")
             valid[1] = False
@@ -642,12 +730,15 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
         route = fkernel.variant(dtype, hd, sq)
         before = dict(fkernel.launches)
         got = fops.flash_attention(q, k, v, qp, kp, spec, kv_valid=valid, impl="kernel")
-        wgmma_launched = fkernel.launches["flash_attention_wgmma"] - before["flash_attention_wgmma"]
-        if fkernel.launches["flash_attention"] - before["flash_attention"] != 1 or \
-                wgmma_launched != int(route == "wgmma"):
+        launched = {n: fkernel.launches[n] - before[n] for n in before}
+        if launched != {"flash_attention": 1, "flash_attention_wgmma": int(route == "wgmma"),
+                        "flash_attention_decode": int(route == "decode")}:
             fail(f"flash_attention {name}: routed to {route}, but launches went "
                  f"{before} -> {fkernel.launches}")
-        want = fops.flash_attention(q, k, v, qp, kp, spec, kv_valid=valid, impl="chunked")
+        big = b * skv > 1_000_000  # B 128 x 32,768: the plain version in slices
+        plain = lambda: plain_attention(  # noqa: E731
+            torch, fops, q, k, v, qp, kp, spec, valid, 16 if big else None)
+        want = plain()
         torch.cuda.synchronize()
         err, rel = rel_err(got, want)
         tol = BF16_TOL if dtype == bf16 else F32_TOL
@@ -663,39 +754,63 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
                "route": route, "max_abs_err": err, "err_of_scale": rel, "tol_of_scale": tol,
                "rows_seeing_no_key": n_unseen, "visible_pairs": visible,
                "bound_ms": bound, "bound_by": bound_by}
-        if name.startswith(("prefill", "decode")):
-            reps = 10 if name.startswith("prefill") else 200
+        long = skv > 1024  # the 32,768-slot caches
+        if name.startswith(("prefill", "decode", "forward")):
+            reps = 10 if name.startswith("prefill") else (20 if long else 200)
             res["ms"] = cuda_ms(torch, lambda: fops.flash_attention(
                 q, k, v, qp, kp, spec, kv_valid=valid, impl="kernel"), reps=reps, warmup=2)
-            res["plain_ms"] = cuda_ms(torch, lambda: fops.flash_attention(
-                q, k, v, qp, kp, spec, kv_valid=valid, impl="chunked"),
-                reps=3 if name.startswith("prefill") else 50, warmup=1)
-        if name == "prefill_bf16":
+            res["plain_ms"] = cuda_ms(torch, plain, reps=3 if name.startswith("prefill") else
+                                      (2 if long else 50), warmup=1)
+        if route == "decode":
+            res["n_split"] = fkernel.decode_plan(
+                b, skv, hkv, h // hkv, fkernel.decode_slots(q.device, dtype, hd, h // hkv))[0]
+        if route == "decode" or name == "forward16_bf16":
+            res["device_ms"] = graph_ms_per_call(torch, lambda: fops.flash_attention(
+                q, k, v, qp, kp, spec, kv_valid=valid, impl="kernel"),
+                4 if long else 64, 3 if long else 10)
+        if name == "prefill_bf16" or route == "decode":
             # The SIMT kernel of flash_attention.cu forced on the same inputs.
-            simt = fkernel.flash_attention_cuda(q, k, v, qp, kp, spec, force_simt=True)
-            res["simt_err_of_scale"] = simt_rel = rel_err(simt, want)[1]
+            simt = lambda: fkernel.flash_attention_cuda(  # noqa: E731
+                q, k, v, qp, kp, spec, kv_valid=valid, force_simt=True)
+            res["simt_err_of_scale"] = simt_rel = rel_err(simt(), want)[1]
             if simt_rel > tol:
                 fail(f"flash_attention {name} (simt): {simt_rel:.3e} of scale from the plain "
                      f"version (limit {tol:.0e})")
-            res["simt_ms"] = cuda_ms(torch, lambda: fkernel.flash_attention_cuda(
-                q, k, v, qp, kp, spec, force_simt=True), reps=10, warmup=2)
+            res["simt_ms"] = cuda_ms(torch, simt, reps=10 if sq > 1 else (3 if long else 200),
+                                     warmup=2 if not big else 1)
+        if route == "decode":
+            res["simt_device_ms"] = graph_ms_per_call(torch, simt, 2 if long else 64,
+                                                      2 if long else 10)
+            res["occupancy"] = fkernel.decode_occupancy(dtype, hd, h // hkv)
+        if name == "prefill_bf16":
             res["occupancy"] = fkernel.wgmma_occupancy(hd, skv)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if name in ("prefill_bf16", "prefill_f32"):
+        if name in ("prefill_bf16", "prefill_f32", "forward16_bf16"):  # Sq = Skv, positions 0..
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, is_causal=True, enable_gqa=True)
-        elif name == "decode_bf16":  # the mask as a boolean argument, built outside
+        elif route == "decode":  # the mask as a boolean argument, built outside
             amask = fref.attention_mask(qp, kp, spec, valid)[:, None]
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=amask, enable_gqa=True)
         else:
             sdpa = None
         if sdpa is not None:
-            lib = sdpa().transpose(1, 2)
-            res["library_err_of_scale"] = rel_err(lib, want)[1]
-            res["library_ms"] = cuda_ms(torch, sdpa, reps=10 if sq > 1 else 200, warmup=2)
+            try:
+                lib = sdpa().transpose(1, 2)
+                res["library_err_of_scale"] = rel_err(lib, want)[1]
+                del lib
+                res["library_ms"] = cuda_ms(torch, sdpa, reps=10 if sq > 1 else
+                                            (5 if long else 200), warmup=2)
+            except torch.cuda.OutOfMemoryError as exc:
+                res["library_ms"] = None
+                res["library_note"] = f"scaled_dot_product_attention ran out of memory: " \
+                    f"{str(exc).splitlines()[0]}"
+                torch.cuda.empty_cache()
         attn[name] = res
-        del q, k, v, got, want
+        del q, k, v, qt, kt, vt, got, want, plain, sdpa
+        simt = amask = None  # their closures hold the inputs
+        if big:
+            torch.cuda.empty_cache()
 
     scan = {}
     # name, (B, S, DI, N), dtype, with h0, a drawn per (channel, state) and b / c
@@ -801,10 +916,11 @@ def expect_counts(kernels, what: str, want: dict) -> dict:
     return counts
 
 
-def profile_window(torch, fn) -> dict:
+def profile_window(torch, fn, match: str = "") -> dict:
     """Device time of ``fn`` under torch.profiler: kernel time summed over
     CUDA events, the launch count, the host-clock wall time of the same
-    window and the busy share, plus the largest kernels."""
+    window and the busy share, plus the largest kernels; with ``match``,
+    also the time and launches of the kernels whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -822,21 +938,26 @@ def profile_window(torch, fn) -> dict:
     if busy_ms <= 0.0:
         fail("the profiler saw no device time")
     top = sorted(kernels, key=dev_us, reverse=True)[:6]
-    return {"device_busy_ms": busy_ms, "wall_ms": wall_ms, "busy_share": busy_ms / wall_ms,
-            "device_launches": sum(e.count for e in kernels),
-            "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3, "count": e.count} for e in top]}
+    out = {"device_busy_ms": busy_ms, "wall_ms": wall_ms, "busy_share": busy_ms / wall_ms,
+           "device_launches": sum(e.count for e in kernels),
+           "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3, "count": e.count} for e in top]}
+    if match:
+        hit = [e for e in kernels if match in e.key]
+        out.update(match_ms=sum(dev_us(e) for e in hit) / 1e3,
+                   match_count=sum(e.count for e in hit))
+    return out
 
 
-def phase_serve(torch, arch, kernel_name, serve, steps, models, get_config, kernels,
-                prefill_counts):
+def phase_serve(torch, arch, serve, steps, models, get_config, kernels, counts,
+                long_cache=False):
     """Serve ``arch`` at full size through the user's entry point, then
     check decode against forward with exact launch counts and time a
-    B 4 x 2048 prefill, whose launches must be ``prefill_counts`` (the
-    serve run, the 16-token forward and decode steps launch ``kernel_name``
-    once per layer and nothing else)."""
+    B 4 x 2048 prefill. ``counts`` holds the exact launches of one decode
+    step ("step"; the serve run makes 48), of the 16-token forward
+    ("forward") and of the prefill ("prefill"). ``long_cache`` adds
+    ``phase_long_cache``."""
     import gc
     cfg = get_config(arch)
-    per_call = cfg.n_layers
     batch, prompt_len, gen = 4, 16, 32
     argv = ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt_len),
             "--gen", str(gen)]
@@ -847,9 +968,9 @@ def phase_serve(torch, arch, kernel_name, serve, steps, models, get_config, kern
     summary = serve.main(argv)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    counts = expect_counts(kernels, f"{arch} serve",
-                           {kernel_name: per_call * (prompt_len + gen)})
-    out = {"serve_main": summary, "serve_main_s": serve_s, "serve_launches": counts,
+    counts = {**counts, "serve": {k: n * (prompt_len + gen) for k, n in counts["step"].items()}}
+    launched = expect_counts(kernels, f"{arch} serve", counts["serve"])
+    out = {"serve_main": summary, "serve_main_s": serve_s, "serve_launches": launched,
            "serve_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     gc.collect()
     torch.cuda.empty_cache()
@@ -865,13 +986,14 @@ def phase_serve(torch, arch, kernel_name, serve, steps, models, get_config, kern
     reset_counts(*kernels)
     full = api.forward(model, {"tokens": prompt})
     torch.cuda.synchronize()
-    expect_counts(kernels, f"{arch} forward of {prompt_len} tokens", {kernel_name: per_call})
+    out["forward_launches"] = expect_counts(kernels, f"{arch} forward of {prompt_len} tokens",
+                                            counts["forward"])
     cache = api.init_cache(batch, prompt_len + gen)
     outs = []
     for t in range(prompt_len):
         reset_counts(*kernels)
         logits, cache = api.decode_step(model, cache, prompt[:, t:t + 1])
-        expect_counts(kernels, f"{arch} decode step", {kernel_name: per_call})
+        out["step_launches"] = expect_counts(kernels, f"{arch} decode step", counts["step"])
         outs.append(logits[:, 0])
     dec = torch.stack(outs, dim=1)
     if full.shape != (batch, prompt_len, cfg.vocab_size) or not bool(torch.isfinite(full).all()) \
@@ -924,14 +1046,89 @@ def phase_serve(torch, arch, kernel_name, serve, steps, models, get_config, kern
     out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
     out["prefill_tokens_per_s"] = batch * 2048 / (out["prefill_ms"] / 1e3)
     out["prefill_launches"] = expect_counts(kernels, f"{arch} B {batch} x 2048 prefill",
-                                            prefill_counts)
+                                            counts["prefill"])
     if logits.shape != (batch, 2048, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
         fail(f"{arch}: prefill logits {tuple(logits.shape)} not finite of the expected shape")
     out["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     del logits
     out["prefill_profile"] = prof = profile_window(torch, lambda: prefill(model, {"tokens": tokens}))
     out["prefill_busy_share"] = prof["device_busy_ms"] / out["prefill_ms"]
+    del tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    if long_cache:
+        out["long_cache"] = phase_long_cache(torch, models, cfg, api, model, kernels,
+                                             counts["step"])
     del model, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# Filled positions of the long-cache decode step (the JAX package's
+# decode_32k length) and its tolerance against the same step with the
+# plain attention: both round attention's output once to bf16 and carry the
+# difference through the other layers' bf16 products; held to MODEL_TOL.
+LONG_CACHE = 32768
+LONG_CACHE_TOL = 5e-2
+
+
+def phase_long_cache(torch, models, cfg, api, model, kernels, per_step) -> dict:
+    """One decode step of the full-size model at B 4 over a cache of
+    ``LONG_CACHE`` filled positions: k / v drawn on the card from a seeded
+    generator, kv_pos 0 .. LONG_CACHE - 1, the step at position LONG_CACHE.
+    Exact launches (``per_step``), ms per step (host clock, 5 steps from the
+    same cache state), the profiler's device busy time and attention's share
+    of it (the decode kernels it recorded), and the logits against the same
+    step with ``impl="chunked"``."""
+    import gc
+    batch = 4
+    torch.cuda.reset_peak_memory_stats()
+    cache = api.init_cache(batch, LONG_CACHE + 1)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for name, t in cache.items():
+        if name.startswith("kv_pos"):
+            t[..., :LONG_CACHE] = torch.arange(LONG_CACHE, dtype=torch.int32, device="cuda")
+        elif name.startswith(("k", "v")):
+            t.normal_(generator=gen)
+    cache_gb = sum(t.numel() * t.element_size() for t in cache.values()
+                   if isinstance(t, torch.Tensor)) / 1e9
+    tok = torch.as_tensor(np.random.default_rng(4).integers(0, cfg.vocab_size, (batch, 1)),
+                          dtype=torch.int32, device="cuda")
+
+    def step(api_=api):
+        cache["pos"] = LONG_CACHE  # every step decodes the same position
+        return api_.decode_step(model, cache, tok)[0]
+
+    reset_counts(*kernels)
+    logits = step()
+    torch.cuda.synchronize()
+    launched = expect_counts(kernels, f"{cfg.name} decode step over {LONG_CACHE} positions",
+                             per_step)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_window(torch, step, match="flash_decode_kernel")
+    want = step(models.build_model(cfg, impl="chunked"))
+    if logits.shape != (batch, 1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        fail(f"{cfg.name} long-cache step: logits {tuple(logits.shape)} not finite of the "
+             f"expected shape")
+    err, rel = rel_err(logits, want)
+    if rel > LONG_CACHE_TOL:
+        fail(f"{cfg.name} long-cache step: {rel:.3e} of scale from the step with the plain "
+             f"attention (limit {LONG_CACHE_TOL})")
+    out = {"positions": LONG_CACHE, "batch": batch, "cache_gb": cache_gb,
+           "ms_per_step": sum(times) / len(times), "ms_steps": times, "launches": launched,
+           "device_busy_ms": prof["device_busy_ms"], "device_launches": prof["device_launches"],
+           "attention_ms": prof["match_ms"], "attention_launches": prof["match_count"],
+           "attention_share": prof["match_ms"] / prof["device_busy_ms"],
+           "busy_share": prof["device_busy_ms"] / (sum(times) / len(times)),
+           "vs_plain_err_of_scale": rel, "vs_plain_max_abs": err, "tol_of_scale": LONG_CACHE_TOL,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del cache, logits, want
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -945,7 +1142,9 @@ def phase_lm_parity(torch, models, configs, kernels):
     """Reduced minitron-4b and falcon-mamba-7b in float32 with the same
     weights: forward logits and 4 decode steps on the card (kernels) and on
     the CPU (plain versions) agree within 1e-5 of scale. Both sum in float32
-    in other orders (matmuls outside TF32, set in main)."""
+    in other orders (matmuls outside TF32, set in main). Exact launches: the
+    forward takes the SIMT attention kernel (16 query rows), each decode step
+    the decode one (head dim 16); or the scan, once a layer a call."""
     out = {}
     batch = 2
     for arch in ("minitron-4b", "falcon-mamba-7b"):
@@ -964,9 +1163,10 @@ def phase_lm_parity(torch, models, configs, kernels):
             lg, c_gpu = gpu.decode_step(m_gpu, c_gpu, tg[:, t:t + 1])
             lc, c_cpu = cpu.decode_step(m_cpu, c_cpu, tc[:, t:t + 1])
             pairs.append((f"decode{t}", lg, lc))
-        launched = all_counts(*kernels)
-        if sum(launched.values()) != 5 * cfg.n_layers:
-            fail(f"{arch} reduced: kernel launches {launched}, expected {5 * cfg.n_layers}")
+        n = cfg.n_layers
+        want_counts = ({"flash_attention": 5 * n, "flash_attention_decode": 4 * n}
+                       if cfg.family == "dense" else {"mamba1_scan": 5 * n})
+        launched = expect_counts(kernels, f"{arch} reduced", want_counts)
         worst = 0.0
         for name, g, c in pairs:
             rel = rel_err(g.cpu(), c)[1]
@@ -1012,8 +1212,8 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    # One nvcc per library, all started together; phase 1 waits for the
-    # matchers, phase 5 for the other two.
+    # One build per library (one nvcc per source, then a link), all started
+    # together; phase 1 waits for the matchers, phase 3 for the other two.
     def timed_build(build):
         t = time.perf_counter()
         build()
@@ -1033,6 +1233,10 @@ def main(argv=None) -> int:
         print(f"phase 2 greedy_collection {label} {tm['shape']}: {tm['ms']:.5g} ms, "
               f"{tm['selections']} selections, {tm['us_per_selection']:.5g} us a selection "
               f"(plain {tm['plain_ms']:.5g} ms)")
+    # Phase 3 times host-bound loops on the host clock: the builds must not
+    # share the CPU with them.
+    lm_build_s = {name: builds[name].result() for name in ("flash_attention", "mamba1_scan")}
+    pool.shutdown()
 
     t0 = time.perf_counter()
     sampler = phase_sampler(torch, core, network)
@@ -1055,13 +1259,14 @@ def main(argv=None) -> int:
     parity = phase_parity(torch, core, bridge, cfg, *final["l-ds"])
     print(f"phase 4 CUDA vs CPU slots: {json.dumps(parity)} ({time.perf_counter() - t0:.1f} s)")
 
-    lm_build_s = {name: builds[name].result() for name in ("flash_attention", "mamba1_scan")}
-    pool.shutdown()
     print(f"phase 5 build (started with phase 1, seconds each): {json.dumps(lm_build_s)}")
     from repro_torch.kernels import _build
     sass = wgmma_sass(fkernel, _build.cuda_tool)
     print(f"phase 5 wgmma kernel SASS (HGMMA instructions, ptxas registers and spills): "
           f"{json.dumps(sass)}")
+    decode_regs = decode_ptxas(fkernel)
+    print(f"phase 5 decode attention kernel (ptxas registers and spills per instance "
+          f"<type, padded hd, rows>): {json.dumps(decode_regs)}")
     scan_regs = scan_ptxas(skernel)
     print(f"phase 5 scan kernel (ptxas registers and spills per instance <type, G>): "
           f"{json.dumps(scan_regs)}")
@@ -1071,24 +1276,29 @@ def main(argv=None) -> int:
     for kname, cases in lm_kres.items():
         print(f"phase 6 {kname} vs plain: " + json.dumps(
             {c: {k: r[k] for k in ("err_of_scale", "state_err_of_scale", "ms", "device_ms",
-                                   "simt_ms", "plain_ms", "bound_ms", "library_ms") if k in r}
+                                   "simt_ms", "simt_device_ms", "n_split", "plain_ms",
+                                   "bound_ms", "library_ms") if k in r}
              for c, r in cases.items()}))
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
 
     all_kernels = (kernel, fkernel, skernel)
     serve_res = {}
     # The B 4 x 2048 bf16 prefill takes the wgmma kernel in each of
-    # minitron-4b's 32 layers (and counts under both names); the serve run,
-    # which prefills by decode, and every decode step take the SIMT one.
-    n_minitron = configs.get_config("minitron-4b").n_layers
+    # minitron-4b's 32 layers, and every decode step (the serve run
+    # prefills by decode) the decode kernel, each counted under its own name
+    # and under flash_attention; the 16-token forward takes the SIMT one.
+    n_mini = configs.get_config("minitron-4b").n_layers
     n_falcon = configs.get_config("falcon-mamba-7b").n_layers
-    for phase, arch, kname, prefill_counts in (
-            (7, "minitron-4b", "flash_attention",
-             {"flash_attention": n_minitron, "flash_attention_wgmma": n_minitron}),
-            (8, "falcon-mamba-7b", "mamba1_scan", {"mamba1_scan": n_falcon})):
+    for phase, arch, counts in (
+            (7, "minitron-4b",
+             {"step": {"flash_attention": n_mini, "flash_attention_decode": n_mini},
+              "forward": {"flash_attention": n_mini},
+              "prefill": {"flash_attention": n_mini, "flash_attention_wgmma": n_mini}}),
+            (8, "falcon-mamba-7b", {name: {"mamba1_scan": n_falcon}
+                                    for name in ("step", "forward", "prefill")})):
         t0 = time.perf_counter()
-        serve_res[arch] = r = phase_serve(torch, arch, kname, serve, steps, models,
-                                          configs.get_config, all_kernels, prefill_counts)
+        serve_res[arch] = r = phase_serve(torch, arch, serve, steps, models, configs.get_config,
+                                          all_kernels, counts, long_cache=phase == 7)
         print(f"phase {phase} {arch}: " + json.dumps(
             {k: r[k] for k in ("tokens_per_s", "ms_per_decode_step", "prefill_ms",
                                "decode_vs_forward_err_of_scale", "argmax_agreement",
@@ -1099,6 +1309,9 @@ def main(argv=None) -> int:
             + f" ({time.perf_counter() - t0:.1f} s)")
         for window in ("decode_profile", "prefill_profile"):
             print(f"phase {phase} {arch} {window}: " + json.dumps(r[window]))
+        if "long_cache" in r:
+            print(f"phase {phase} {arch} decode step over {LONG_CACHE} positions: "
+                  + json.dumps({k: v for k, v in r["long_cache"].items() if k != "ms_steps"}))
 
     t0 = time.perf_counter()
     lm_parity = phase_lm_parity(torch, models, configs, all_kernels)
@@ -1132,21 +1345,57 @@ def main(argv=None) -> int:
     fa = lm_kres["flash_attention"]
     pre, dec = fa["prefill_bf16"], fa["decode_bf16"]
     mini = serve_res["minitron-4b"]
-    per_call = configs.get_config("minitron-4b").n_layers
     fa_err = {route: max(r["max_abs_err"] for r in fa.values() if r["route"] == route)
-              for route in ("simt", "wgmma")}
-    # The SIMT kernel's main path is decode (the serve run); the wgmma
-    # kernel's is the B 4 x 2048 prefill.
+              for route in ("simt", "wgmma", "decode")}
+
+    def simt_count(counts):
+        return counts["flash_attention"] - counts["flash_attention_wgmma"] - \
+            counts["flash_attention_decode"]
+
+    # The SIMT kernel's main path is now minitron-4b's 16-token forward, timed
+    # at its shape (forward16_bf16); "decode_forced" keeps its time forced at
+    # the serve run's decode shape, its main path before the decode kernel.
+    # The decode kernel's is the serve run; the wgmma kernel's the B 4 x 2048
+    # prefill. A SIMT or decode "ms" is the device time per call (CUDA graph
+    # replay); "event_ms" times back-to-back wrapper calls, which the host
+    # bounds at these few microseconds.
+    fwd = fa["forward16_bf16"]
     line.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-        "replaces": fa_replaces, "launches": mini["serve_launches"]["flash_attention"],
-        "launches_per_decode_step": per_call, "max_abs_err": fa_err["simt"],
-        "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
-        "bound_by": dec["bound_by"], "library_ms": dec["library_ms"], "shape": dec["shape"],
+        "replaces": fa_replaces, "launches": simt_count(mini["forward_launches"]),
+        "launches_serve": simt_count(mini["serve_launches"]),
+        "launches_per_decode_step": simt_count(mini["step_launches"]),
+        "max_abs_err": fa_err["simt"],
+        "ms": fwd["device_ms"], "event_ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+        "library_ms": fwd["library_ms"], "shape": fwd["shape"],
+        "decode_forced": {"shape": dec["shape"], "ms": dec["simt_device_ms"],
+                          "event_ms": dec["simt_ms"], "plain_ms": dec["plain_ms"],
+                          "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+                          "library_ms": dec["library_ms"]},
         "prefill": {"shape": pre["shape"], "ms": pre["simt_ms"], "bound_ms": pre["bound_ms"]},
         "prefill_f32": {k: fa["prefill_f32"][k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
+    line.append({
+        "name": "flash_attention_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_decode_sm90.cu",
+        "replaces": fa_replaces, "launches": mini["serve_launches"]["flash_attention_decode"],
+        "launches_per_decode_step": mini["step_launches"]["flash_attention_decode"],
+        "max_abs_err": fa_err["decode"], "ms": dec["device_ms"], "event_ms": dec["ms"],
+        "simt_ms": dec["simt_device_ms"], "simt_event_ms": dec["simt_ms"],
+        "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+        "library_ms": dec["library_ms"], "shape": dec["shape"], "n_split": dec["n_split"],
+        "cases": {c: {k: fa[c].get(k) for k in (
+            "shape", "n_split", "ms", "device_ms", "simt_ms", "simt_device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_note", "err_of_scale")}
+            for c in ("decode_ring_bf16", "decode32k_b4_bf16", "decode32k_b128_bf16",
+                      "decode_f32")},
+        "occupancy": dec["occupancy"], "ptxas": decode_regs,
+        "long_cache_step": {k: mini["long_cache"][k] for k in (
+            "ms_per_step", "device_busy_ms", "attention_ms", "attention_share",
+            "vs_plain_err_of_scale")},
     })
     line.append({
         "name": "flash_attention_wgmma", "route": "cuda",
@@ -1186,7 +1435,7 @@ def main(argv=None) -> int:
             "sampler": sampler, "main_path": main_res, "training_ms": train_ms,
             "profile": prof,
             "parity": parity, "lm_build_s": lm_build_s, "wgmma_sass": sass,
-            "scan_ptxas": scan_regs,
+            "scan_ptxas": scan_regs, "decode_ptxas": decode_regs,
             "lm_kernels": lm_kres,
             "serve": serve_res, "lm_parity": lm_parity}, indent=1))
     print(json.dumps({"kernels": line}))

@@ -1,11 +1,12 @@
 """Builds a package's CUDA sources into a shared library at first use.
 
 The library is compiled by ``nvcc`` for ``sm_90a`` (Hopper) with a plain C
-interface and loaded with ``ctypes``. It lands in ``build/repro_torch/`` at
-the root of the checkout, named by a hash of the sources and the flags, so
-an edited source is rebuilt and an unchanged one is compiled once per
-checkout; nvcc's own output is kept beside it (``.log``). Only sources
-inside this repository are compiled.
+interface and loaded with ``ctypes``: one ``nvcc`` call for a library of
+one source; for several, one ``nvcc`` per source, all started together, then
+a link. It lands in ``build/repro_torch/`` at the root of the checkout, named
+by a hash of the sources and the flags, so an edited source is rebuilt and
+an unchanged one is compiled once per checkout; nvcc's own output is kept
+beside it (``.log``). Only sources inside this repository are compiled.
 """
 from __future__ import annotations
 
@@ -64,14 +65,35 @@ def build(name: str, sources: Sequence[Path], extra_flags: Sequence[str] = ()) -
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [cuda_tool(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    # One nvcc for a single source; with several, one per source, all started
+    # together, then a link.
+    objs = [out.with_suffix(f".{i}.{os.getpid()}.o") for i in range(len(sources))] \
+        if len(sources) > 1 else []
+    if not objs:
+        compiles = [[cuda_tool(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(sources[0])]]
+    else:
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        compiles = [[cuda_tool(), *compile_flags, *extra_flags, "-c", "-o", str(obj), str(src)]
+                    for obj, src in zip(objs, sources)]
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in compiles]
+        runs = [(cmd, proc.communicate()[0], proc.returncode)
+                for cmd, proc in zip(compiles, procs)]
+        if objs and all(rc == 0 for _, _, rc in runs):
+            link = [cuda_tool(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), *map(str, objs)]
+            done = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+            runs.append((link, done.stdout, done.returncode))
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    for cmd, text, rc in runs:
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text}")
     # nvcc's report (e.g. ptxas -v: registers and spills per kernel) beside it.
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    out.with_suffix(".log").write_text("".join(text for _, text, _ in runs))
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
     return out
 

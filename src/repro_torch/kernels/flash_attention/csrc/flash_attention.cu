@@ -12,8 +12,10 @@
 // could do on its tensor cores at 989 TFLOP/s in bf16. This first kernel
 // runs them on the float32 cores instead (67 TFLOP/s), so it cannot come
 // near that bound; it is the simple, exact design that a later kernel
-// (wgmma, TMA, warp specialisation) is measured against. In decode
-// (Sq = 1) the bytes of the kv cache bound it.
+// (wgmma, TMA, warp specialisation) is measured against. Decode (Sq = 1)
+// takes flash_decode_sm90.cu, bf16 prefill at hd 64 / 128
+// flash_attention_sm90.cu; this kernel keeps float32 prefill, hd 80 and 256
+// prefill and decode at a head dim that is not a multiple of 8.
 //
 // Design. One thread block of 256 threads per (q tile of 64 rows, q head,
 // batch row). The q tile stays in shared memory; the block streams the

@@ -4,7 +4,8 @@
 // Replaces the Pallas TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention/kernel.py, body _fwd_kernel) for bf16
 // calls with head dim 64 or 128 and at least 64 query rows; the kernel of
-// flash_attention.cu takes float32, other head dims and decode. Both compute
+// flash_decode_sm90.cu takes decode (one query row) and that of
+// flash_attention.cu the rest. All compute
 // what ../ref.py and ../ops.py compute: grouped-query attention over
 // absolute positions with causal, sliding-window and prefix-LM masks, a
 // per-key validity mask and an optional tanh soft-cap; float32 m, l and

@@ -3,8 +3,9 @@ online-softmax version; counterpart of ``repro.kernels.flash_attention.ops``.
 
 ``flash_attention(..., impl="auto")`` launches a CUDA kernel (``kernel.py``)
 for CUDA tensors, in prefill and in decode alike, as the JAX package runs its
-Pallas kernel on a TPU: ``kernel.variant`` sends bf16 prefill (hd 64 or 128,
-Sq >= 64) to the wgmma kernel and every other call to the SIMT kernel. For
+Pallas kernel on a TPU: ``kernel.variant`` sends decode (Sq = 1, hd a
+multiple of 8) to the decode kernel, bf16 prefill (hd 64 or 128, Sq >= 64)
+to the wgmma kernel and every other call to the SIMT kernel. For
 CPU tensors it runs ``attention_chunked``, and for one query row
 (``Sq == 1``, decode) the exact grouped ``attention_ref``, as the JAX
 package does off the TPU. ``"kernel"``, ``"chunked"`` and

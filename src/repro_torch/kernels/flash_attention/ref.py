@@ -5,7 +5,8 @@ attention path; counterpart of ``repro.kernels.flash_attention.ref``.
 paths are held against. It supports GQA, causal / sliding-window / prefix-LM
 masks, tanh soft-capping of the logits and padded-KV validity (decode
 caches). Positions are absolute and read from ``q_pos`` / ``kv_pos``, never
-from indices.
+from indices. ``decode_split_reference`` repeats the decode kernel's
+split-and-merge arithmetic (``csrc/flash_decode_sm90.cu``) for the tests.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Optional
 import torch
 
 NEG = -1e30  # finite mask value: a row with no visible key yet stays finite
+DECODE_TILE = 32  # keys a tile of the decode kernel; its splits are whole tiles
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,3 +87,48 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = probs * mask.any(dim=-1)[:, None, :, None]
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
     return out.to(q.dtype)
+
+
+def decode_split_bounds(skv: int, n_split: int) -> list[tuple[int, int]]:
+    """Key ranges of the decode kernel's splits: ``DECODE_TILE``-key tiles cut
+    into ``n_split`` equal runs of whole tiles (the last may be shorter;
+    fewer runs when there are fewer tiles)."""
+    tiles = -(-skv // DECODE_TILE)
+    per = -(-tiles // max(1, min(n_split, tiles))) * DECODE_TILE
+    return [(s, min(s + per, skv)) for s in range(0, skv, per)]
+
+
+def decode_split_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           q_pos: torch.Tensor, kv_pos: torch.Tensor, spec: AttnSpec,
+                           kv_valid: Optional[torch.Tensor] = None, n_split: int = 1,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Decode attention (Sq = 1) the way the decode kernel does it: the keys
+    cut as ``decode_split_bounds`` says, each split's float32 (m, l, acc)
+    for the q heads of each kv head with masked logits at -1e30, then merged
+    with factors exp(m_s - M). A split that sees no key has m_s = -1e30 and
+    merges away; a row that sees no key in any split is written as 0. Same
+    signature and result as ``attention_ref`` (up to rounding)."""
+    b, sq, h, hd = q.shape
+    if sq != 1:
+        raise ValueError(f"decode_split_reference takes one query row, got {sq}")
+    skv, hkv = k.shape[1], k.shape[2]
+    scale = hd ** -0.5 if scale is None else scale
+    mask = attention_mask(q_pos, kv_pos, spec, kv_valid)[:, 0]  # (B, Skv)
+    qg = q.float().reshape(b, hkv, h // hkv, hd)
+    ms, ls, accs = [], [], []
+    for lo, hi in decode_split_bounds(skv, n_split):
+        logits = _capped(torch.einsum("bhgd,bkhd->bhgk", qg, k[:, lo:hi].float()) * scale, spec)
+        logits = torch.where(mask[:, None, None, lo:hi], logits, NEG)
+        m = logits.amax(dim=-1)  # (B, Hkv, G)
+        p = torch.exp(logits - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhgk,bkhd->bhgd", p, v[:, lo:hi].float()))
+    m_all = torch.stack(ms)  # (S, B, Hkv, G)
+    m_max = m_all.amax(dim=0)
+    factor = torch.exp(m_all - m_max)
+    l_sum = (torch.stack(ls) * factor).sum(dim=0)
+    acc = (torch.stack(accs) * factor[..., None]).sum(dim=0)
+    out = acc / torch.clamp(l_sum[..., None], min=1e-30)
+    out = torch.where((m_max > NEG / 2)[..., None], out, 0.0)
+    return out.reshape(b, 1, h, hd).to(q.dtype)

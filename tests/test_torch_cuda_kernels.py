@@ -136,6 +136,183 @@ def test_flash_attention_decode_ring_buffer(card):
         assert bool((got[2] == 0).all()) and bool((got[:2] != 0).any())
 
 
+def _decode_inputs(card, b, skv, h, hkv, hd, dtype, kind, seed):
+    """One query row a batch row over a cache of ``kind``: "filled" (keys at
+    positions 0 .. Skv - 1, the query at Skv), "ring" (permuted positions,
+    a fifth of the slots empty at -1, the last of several batch rows' query
+    before every key: it sees none) or "half" (the slots of a ring buffer that is
+    half full: the first half at positions 0 .. Skv / 2 - 1, the rest -1).
+    k and v are drawn on the card from a seeded generator."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((b, 1, h, hd), generator=gen, device=card).to(dtype)
+    k, v = (torch.randn((b, skv, hkv, hd), generator=gen, device=card, dtype=dtype)
+            for _ in range(2))
+    rng = np.random.default_rng(seed)
+    if kind == "filled":
+        kp = np.broadcast_to(np.arange(skv), (b, skv))
+        qp = np.full((b, 1), skv)
+    elif kind == "ring":
+        kp = np.stack([rng.permutation(np.arange(100, 100 + skv)) for _ in range(b)])
+        kp[rng.random(kp.shape) < 0.2] = -1
+        qp = np.full((b, 1), 100 + skv)
+        if b > 1:
+            qp[-1] = 50
+    else:
+        kp = np.where(np.arange(skv) < skv // 2, np.arange(skv), -1)[None].repeat(b, 0)
+        qp = np.full((b, 1), skv // 2 - 1)
+    kp = torch.as_tensor(np.ascontiguousarray(kp).astype(np.int32), device=card)
+    qp = torch.as_tensor(qp.astype(np.int32), device=card)
+    return q, k, v, qp, kp, kp >= 0
+
+
+def _decode_plain(q, k, v, qp, kp, spec, valid, n_split, rows_at_once=None):
+    """The plain split-and-merge version, over batch slices of ``rows_at_once``
+    rows (float32 copies of a large cache do not fit beside it)."""
+    step = rows_at_once or q.shape[0]
+    return torch.cat([fref.decode_split_reference(q[i:i + step], k[i:i + step], v[i:i + step],
+                                                  qp[i:i + step], kp[i:i + step], spec,
+                                                  valid[i:i + step], n_split)
+                      for i in range(0, q.shape[0], step)])
+
+
+def _check_decode(got, want, spec, qp, kp, valid):
+    """bf16 within 8e-3 of scale (one rounding of the output), float32
+    within 2e-5; rows that see no key exactly 0."""
+    assert got.dtype == want.dtype and bool(torch.isfinite(got).all())
+    if got.dtype == torch.float32:
+        _close(got, want, 2e-5)
+    else:
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= BF16_TOL_OF_SCALE * float(want.float().abs().max())
+    unseen = ~fref.attention_mask(qp, kp, spec, valid)[:, 0].any(dim=-1)  # (B,)
+    assert bool((got[unseen] == 0).all())
+    return int(unseen.sum())
+
+
+# (B, Skv, H, Hkv, hd, spec, cache kind, forced split count): the serve run's
+# shape, a half-full ring buffer with a window, fewer keys than a tile, Skv
+# not a multiple of a tile, G = 1 / 3 / 4 / 8 / 20 (20: three row groups),
+# hd 64 / 80 / 128 / 256, one split over 4096 keys and seven forced splits.
+DECODE_CASES = [
+    (4, 48, 32, 8, 128, AttnSpec(), "ring", None),
+    (4, 48, 32, 8, 128, AttnSpec(window=16), "half", None),
+    (2, 20, 8, 2, 64, AttnSpec(), "ring", None),
+    (3, 1000, 12, 4, 80, AttnSpec(softcap=30.0), "ring", None),
+    (2, 333, 8, 1, 256, AttnSpec(prefix_len=150), "ring", None),
+    (2, 4096, 8, 8, 64, AttnSpec(), "filled", 1),
+    (2, 4000, 16, 2, 128, AttnSpec(window=1500), "filled", 7),
+    (1, 5000, 20, 1, 128, AttnSpec(), "ring", None),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_decode_matches_plain_version(card, case, dtype):
+    """Sq = 1 takes the decode kernel, one launch a call, against the plain
+    split-and-merge version with the same splits and the exact grouped
+    reference; a repeated call gives the same bits."""
+    b, skv, h, hkv, hd, spec, kind, n_split = case
+    q, k, v, qp, kp, valid = _decode_inputs(card, b, skv, h, hkv, hd, dtype, kind, 5)
+    assert fkernel.variant(dtype, hd, 1) == "decode"
+    splits, _ = (fkernel.split_plan(skv, n_split) if n_split else fkernel.decode_plan(
+        b, skv, hkv, h // hkv, fkernel.decode_slots(q.device, dtype, hd, h // hkv)))
+    before = dict(fkernel.launches)
+    got = fkernel._flash_attention_cuda(q, k, v, qp, kp, spec, kv_valid=valid, n_split=n_split)
+    assert fkernel.launches == {**before,
+                                "flash_attention": before["flash_attention"] + 1,
+                                "flash_attention_decode": before["flash_attention_decode"] + 1}
+    unseen = _check_decode(got, _decode_plain(q, k, v, qp, kp, spec, valid, splits),
+                           spec, qp, kp, valid)
+    _check_decode(got, attention_ref(q, k, v, qp, kp, spec, valid, gqa="group"),
+                  spec, qp, kp, valid)
+    if kind == "ring" and spec.prefix_len == 0 and b > 1:
+        assert unseen >= 1
+    again = fkernel._flash_attention_cuda(q, k, v, qp, kp, spec, kv_valid=valid, n_split=n_split)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 7, 32, 128])
+def test_flash_decode_split_counts(card, n_split):
+    """One split to one split a tile over 4096 keys, bf16 at minitron-4b's
+    heads: keys 1024 .. 2047 are empty, so some splits see no key and merge
+    away, and the last batch row sees none at all."""
+    q, k, v, qp, kp, valid = _decode_inputs(card, 3, 4096, 32, 8, 128, torch.bfloat16,
+                                            "filled", 9)
+    kp[:, 1024:2048] = -1
+    qp[-1] = -5
+    valid = kp >= 0
+    spec = AttnSpec()
+    got = fkernel._flash_attention_cuda(q, k, v, qp, kp, spec, kv_valid=valid, n_split=n_split)
+    assert fkernel.split_plan(4096, n_split)[0] == n_split
+    _check_decode(got, _decode_plain(q, k, v, qp, kp, spec, valid, n_split), spec, qp, kp, valid)
+    assert bool((got[-1] == 0).all()) and bool((got[:-1] != 0).any())
+
+
+@pytest.mark.parametrize("b", [4, 128])
+def test_flash_decode_long_cache(card, b):
+    """The JAX package's decode_32k length, 32,768 filled slots, bf16 at
+    minitron-4b's heads, as the wrapper splits it; at B 128 the plain version
+    runs over batch slices (one layer's cache is 17.2 GB)."""
+    q, k, v, qp, kp, valid = _decode_inputs(card, b, 32768, 32, 8, 128, torch.bfloat16,
+                                            "filled", 13)
+    spec = AttnSpec()
+    splits, _ = fkernel.decode_plan(b, 32768, 8, 4,
+                                    fkernel.decode_slots(q.device, torch.bfloat16, 128, 4))
+    assert splits > 1
+    before = fkernel.launches["flash_attention_decode"]
+    got = fops.flash_attention(q, k, v, qp, kp, spec, kv_valid=valid)
+    assert fkernel.launches["flash_attention_decode"] == before + 1
+    _check_decode(got, _decode_plain(q, k, v, qp, kp, spec, valid, splits, rows_at_once=8),
+                  spec, qp, kp, valid)
+
+
+def test_flash_decode_workspace_reuse(card):
+    """Calls of two shapes that both split, in turns, share one workspace:
+    each stays right, and the merge counters are back at zero after each."""
+    shapes = [(4, 8192, 32, 8, 128), (2, 20000, 16, 2, 64)]
+    inputs = [_decode_inputs(card, *s, torch.bfloat16, "ring", 21 + i)
+              for i, s in enumerate(shapes)]
+    spec = AttnSpec()
+    for q, k, v, qp, kp, valid in inputs + inputs:
+        b, skv, hkv, h = q.shape[0], k.shape[1], k.shape[2], q.shape[2]
+        splits, _ = fkernel.decode_plan(b, skv, hkv, h // hkv, fkernel.decode_slots(
+            q.device, torch.bfloat16, q.shape[3], h // hkv))
+        assert splits > 1
+        got = fkernel.flash_attention_cuda(q, k, v, qp, kp, spec, kv_valid=valid)
+        _check_decode(got, _decode_plain(q, k, v, qp, kp, spec, valid, splits),
+                      spec, qp, kp, valid)
+        stream = torch.cuda.current_stream(card).cuda_stream
+        _, counters = fkernel._workspaces[(q.device, stream)]
+        assert int(counters.abs().sum()) == 0
+    assert all(int(c.abs().sum()) == 0 for _, c in fkernel._retired)
+
+
+def test_flash_decode_odd_head_dim_takes_the_simt_kernel(card):
+    """A head dim that is not a multiple of 8 stays on flash_attention.cu at
+    Sq = 1 (variant says so); it is right there too."""
+    q, k, v, qp, kp, valid = _decode_inputs(card, 2, 100, 8, 2, 36, torch.float32, "ring", 3)
+    assert fkernel.variant(torch.float32, 36, 1) == "simt"
+    before = dict(fkernel.launches)
+    got = fops.flash_attention(q, k, v, qp, kp, AttnSpec(), kv_valid=valid)
+    assert fkernel.launches == {**before, "flash_attention": before["flash_attention"] + 1}
+    _close(got, attention_ref(q, k, v, qp, kp, AttnSpec(), valid, gqa="group"), 2e-5)
+
+
+def test_flash_decode_forced_simt_matches_decode_kernel(card):
+    """force_simt takes flash_attention.cu at Sq = 1 (chip_smoke.py times the
+    two on the same inputs); both agree with the plain version."""
+    q, k, v, qp, kp, valid = _decode_inputs(card, 4, 48, 32, 8, 128, torch.bfloat16, "ring", 4)
+    before = dict(fkernel.launches)
+    simt = fkernel.flash_attention_cuda(q, k, v, qp, kp, AttnSpec(), kv_valid=valid,
+                                        force_simt=True)
+    assert fkernel.launches == {**before, "flash_attention": before["flash_attention"] + 1}
+    want = attention_ref(q, k, v, qp, kp, AttnSpec(), valid, gqa="group")
+    _check_decode(simt, want, AttnSpec(), qp, kp, valid)
+    with pytest.raises(ValueError, match="n_split"):
+        fkernel._flash_attention_cuda(q, k, v, qp, kp, AttnSpec(), kv_valid=valid,
+                                      force_simt=True, n_split=2)
+
+
 @pytest.mark.parametrize("shape", [(1, 64, 32, 8), (2, 128, 64, 16), (1, 96, 300, 4),
                                    (2, 1, 32, 16), (1, 40, 64, 24)], ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)

@@ -1,7 +1,8 @@
 """The port's attention (``repro_torch.kernels.flash_attention``) against the
-JAX package's: the exact reference, the plain online-softmax version and
-the grouped decode path against ``repro``'s ``attention_ref`` and its Pallas
-kernel in interpret mode, on the same numpy-seeded inputs.
+JAX package's: the exact reference, the plain online-softmax version, the
+grouped decode path and the decode kernel's split-and-merge plain version
+against ``repro``'s ``attention_ref`` and its Pallas kernel in interpret
+mode, on the same numpy-seeded inputs.
 
 Tolerances are the JAX package's own (``tests/test_kernels.py``): 2e-5 in
 float32, 2e-2 in bfloat16. Rows that see no key must be exactly 0. The CUDA
@@ -12,6 +13,7 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,7 +28,9 @@ from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref  
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as tops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import AttnSpec, attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (AttnSpec, attention_mask,  # noqa: E402
+                                                     attention_ref, decode_split_bounds,
+                                                     decode_split_reference)
 
 # (B, Sq, Skv, H, Hkv, hd, spec): tests/test_kernels.py's cases, then GQA 4:1
 # and a head dim of 80.
@@ -167,7 +171,7 @@ def test_dispatch_and_refusals():
     with pytest.raises(ValueError, match="impl"):
         tops.flash_attention(q, k, v, qp, kp, spec, impl="pallas")
     before = dict(tkernel.launches)
-    assert set(before) == {"flash_attention", "flash_attention_wgmma"}
+    assert set(before) == {"flash_attention", "flash_attention_wgmma", "flash_attention_decode"}
     with pytest.raises(ValueError, match="CUDA"):
         tops.flash_attention(q, k, v, qp, kp, spec, impl="kernel")
     with pytest.raises(ValueError, match="CUDA"):
@@ -176,17 +180,22 @@ def test_dispatch_and_refusals():
         tkernel.flash_attention_cuda(q, k, v, qp, kp, spec, force_simt=True)
     assert tkernel.launches == before
     tkernel.reset_launch_counts()
-    assert tkernel.launches == {"flash_attention": 0, "flash_attention_wgmma": 0}
+    assert tkernel.launches == {"flash_attention": 0, "flash_attention_wgmma": 0,
+                                "flash_attention_decode": 0}
 
 
 @pytest.mark.parametrize("sq", [1, 16, 63, 64, 333, 2048])
-@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("hd", [32, 36, 64, 80, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=str)
 def test_kernel_variant(dtype, hd, sq):
-    """bf16 with hd 64 or 128 and at least 64 query rows takes the wgmma
-    kernel; float32, other head dims and decode-sized calls the SIMT one."""
+    """One query row in float32 or bf16 with a head dim that is a multiple
+    of 8 takes the decode kernel; bf16 with hd 64 or 128 and at least 64
+    query rows the wgmma kernel; everything else (float32 prefill, other
+    head dims, hd 36 at Sq = 1) the SIMT one."""
+    decode = sq == 1 and dtype != torch.float16 and hd % 8 == 0
     wgmma = dtype == torch.bfloat16 and hd in (64, 128) and sq >= 64
-    assert tkernel.variant(dtype, hd, sq) == ("wgmma" if wgmma else "simt")
+    assert tkernel.variant(dtype, hd, sq) == ("decode" if decode else
+                                              "wgmma" if wgmma else "simt")
 
 
 def test_kernel_source_and_build_flags():
@@ -206,12 +215,21 @@ def test_kernel_source_and_build_flags():
     # wgmma (bf16 in, float32 out), k / v through cp.async; built with
     # nvcc's default contraction and ptxas's report, never --fmad=false.
     sm90 = tkernel.SOURCES[1]
-    assert sm90.name == "flash_attention_sm90.cu" and len(tkernel.SOURCES) == 2
+    assert sm90.name == "flash_attention_sm90.cu" and len(tkernel.SOURCES) == 3
     text = sm90.read_text()
     assert "int flash_attention_wgmma_launch(" in text
     assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in text
     assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in text
     assert "cp.async.cg.shared.global" in text
+    # The decode kernel: the third source of the same library; k / v in their
+    # own type through cp.async, the splits merged in the same launch by the
+    # last block of a (batch row, row group), found by an atomic counter.
+    decode = tkernel.SOURCES[2]
+    assert decode.name == "flash_decode_sm90.cu"
+    text = decode.read_text()
+    assert "int flash_decode_launch(" in text and "int flash_decode_occupancy(" in text
+    assert "cp.async.cg.shared.global" in text and "atomicAdd(p.counters" in text
+    assert "cudaFuncSetAttribute" in text and "ready.fetch_or" in text  # once an instance
     assert "--fmad=false" not in tkernel.EXTRA_FLAGS and "-v" in tkernel.EXTRA_FLAGS
     assert tkernel.library_path() == _build.library_path("flash_attention", tkernel.SOURCES,
                                                          tkernel.EXTRA_FLAGS)
@@ -221,3 +239,164 @@ def test_kernel_source_and_build_flags():
             "assert o.kernel._lib is None and s.kernel._lib is None")
     env = {**os.environ, "PYTHONPATH": str(_build.REPO_ROOT / "src")}
     subprocess.run([sys.executable, "-c", code], check=True, env=env)
+
+
+@pytest.mark.parametrize("package", ["matching", "flash_attention", "mamba_scan"])
+def test_build_runs_one_nvcc_per_source(package, tmp_path, monkeypatch):
+    """A library of one source is one nvcc call (compile and link); a library
+    of several compiles each source in its own nvcc, then links the objects.
+    A stand-in nvcc records its arguments and writes the file it is asked for."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.kernels.{package}.kernel")
+    fake = tmp_path / "nvcc"
+    calls = tmp_path / "calls.txt"
+    fake.write_text(f"#!{sys.executable}\n"
+                    "import sys\n"
+                    f"open({str(calls)!r}, 'a').write(' '.join(sys.argv[1:]) + '\\n')\n"
+                    "open(sys.argv[sys.argv.index('-o') + 1], 'w').write('x')\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "cuda_tool", lambda name="nvcc": str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    out = _build.build(package, mod.SOURCES, mod.EXTRA_FLAGS)
+    assert out.is_file() and out.parent == tmp_path / "build"
+    assert out.with_suffix(".log").is_file()
+    assert not list(out.parent.glob("*.o")) and not list(out.parent.glob("*.tmp"))
+    lines = calls.read_text().splitlines()
+    sources = [str(Path(src).resolve()) for src in mod.SOURCES]
+    if len(sources) == 1:
+        assert len(lines) == 1 and "-shared" in lines[0].split() and "-c" not in lines[0].split()
+        assert lines[0].split()[-1] == sources[0]
+    else:
+        compiles, link = lines[:-1], lines[-1].split()
+        assert sorted(line.split()[-1] for line in compiles) == sorted(sources)
+        assert all("-c" in line.split() and "-shared" not in line.split() for line in compiles)
+        assert "-shared" in link and all(arg.endswith(".o") for arg in link[-len(sources):])
+    for line in lines:
+        assert all(flag in line.split() for flag in mod.EXTRA_FLAGS)
+    assert _build.build(package, mod.SOURCES, mod.EXTRA_FLAGS) == out  # built once
+    assert len(calls.read_text().splitlines()) == len(lines)
+
+
+def _split_inputs(group: int, seed: int):
+    """One query row a batch row over a 445-slot ring buffer (14 tiles of 32,
+    the last partial) with 2 kv heads of ``group`` q heads: row 0 has a
+    quarter of its slots empty (-1); row 1 has slots 64 .. 191 empty, so a
+    split of 2 or 4 tiles over them sees no key; row 2's query lies before
+    every position, so it sees no key at all (without a prefix)."""
+    b, skv, hkv, hd = 3, 445, 2, 32
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, 1, hkv * group, hd)).astype(np.float32)
+    k = rng.normal(size=(b, skv, hkv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, skv, hkv, hd)).astype(np.float32)
+    kp = np.stack([rng.permutation(np.arange(100, 100 + skv)) for _ in range(b)]).astype(np.int32)
+    kp[0, rng.random(skv) < 0.25] = -1
+    kp[1, 64:192] = -1
+    qp = np.array([[100 + skv], [100 + skv - 60], [20]], np.int32)
+    return q, k, v, qp, kp, kp >= 0
+
+
+SPLIT_SPECS = [AttnSpec(causal=True), AttnSpec(causal=True, window=64),
+               AttnSpec(causal=True, softcap=20.0), AttnSpec(causal=True, prefix_len=120)]
+
+
+@pytest.mark.parametrize("spec", SPLIT_SPECS, ids=str)
+@pytest.mark.parametrize("group", [1, 3, 4, 8])
+def test_decode_split_reference_matches_jax(group, spec):
+    """The decode kernel's plain version, split into 1, 2, 3 and 7 runs of
+    tiles, against JAX's grouped reference (the decode path of its
+    flash_attention) and the Pallas kernel in interpret mode, in float32
+    within 2e-5; rows that see no key are exactly 0."""
+    arrays = _split_inputs(group, 17 + group)
+    (q, k, v, qp, kp, valid), (jq, jk, jv, jqp, jkp, jvalid) = _both(
+        arrays, torch.float32, jnp.float32)
+    # 448 keys for the Pallas kernel (its kv blocks must divide Skv): three
+    # more empty slots.
+    pad = lambda a, val: np.concatenate(  # noqa: E731
+        [a, np.full((a.shape[0], 3) + a.shape[2:], val, a.dtype)], axis=1)
+    want = j_attention_ref(jq, jk, jv, jqp, jkp, _jspec(spec), kv_valid=jvalid, gqa="group")
+    pallas = flash_attention_pallas(
+        jq, jnp.asarray(pad(arrays[1], 0.0)), jnp.asarray(pad(arrays[2], 0.0)), jqp,
+        jnp.asarray(pad(arrays[4], -1)), _jspec(spec), kv_valid=jnp.asarray(pad(arrays[5], False)),
+        interpret=True, block_q=64, block_kv=64)
+    unseen = ~attention_mask(qp, kp, spec, valid)[:, 0].any(dim=-1)
+    assert bool(unseen[2]) == (spec.prefix_len == 0)
+    for n_split in (1, 2, 3, 7):
+        assert len(decode_split_bounds(445, n_split)) == n_split
+        got = decode_split_reference(q, k, v, qp, kp, spec, valid, n_split)
+        assert got.shape == q.shape and got.dtype == torch.float32
+        _close(got, want, 2e-5)
+        _close(got, pallas, 2e-5)
+        assert torch.equal(got[unseen], torch.zeros_like(got[unseen]))
+        assert bool(got[~unseen].abs().sum(dim=(1, 2)).gt(0).all())
+
+
+@pytest.mark.parametrize("group", [1, 3, 4, 8])
+def test_decode_split_reference_bf16_matches_jax(group):
+    """The same in bfloat16 (inputs and output; float32 inside), within 2e-2
+    of JAX's grouped reference in bfloat16."""
+    (q, k, v, qp, kp, valid), (jq, jk, jv, jqp, jkp, jvalid) = _both(
+        _split_inputs(group, 29 + group), torch.bfloat16, jnp.bfloat16)
+    want = j_attention_ref(jq, jk, jv, jqp, jkp, _jspec(SPLIT_SPECS[1]), kv_valid=jvalid,
+                           gqa="group")
+    for n_split in (1, 7):
+        got = decode_split_reference(q, k, v, qp, kp, SPLIT_SPECS[1], valid, n_split)
+        assert got.dtype == torch.bfloat16
+        _close(got, want, 2e-2)
+        assert torch.equal(got[2], torch.zeros_like(got[2]))
+
+
+def test_decode_split_merges_away_splits_with_no_key():
+    """Splits with no visible key (m = -1e30) merge away exactly as if their
+    keys were not there: the result equals that over the visible splits'
+    keys alone; a row whose every split is empty is 0."""
+    q, k, v, qp, kp, valid = (torch.as_tensor(a) for a in _split_inputs(4, 3))
+    spec = AttnSpec()
+    # Row 1's keys 64 .. 191 are empty: with 7 splits of 64 keys, splits 1
+    # and 2 see nothing.
+    assert decode_split_bounds(445, 7)[1:3] == [(64, 128), (128, 192)]
+    got = decode_split_reference(q, k, v, qp, kp, spec, valid, 7)
+    keep = torch.cat([torch.arange(0, 64), torch.arange(192, 445)])
+    alone = attention_ref(q[1:2], k[1:2, keep], v[1:2, keep], qp[1:2], kp[1:2, keep], spec,
+                          valid[1:2, keep], gqa="group")
+    torch.testing.assert_close(got[1:2], alone, rtol=2e-5, atol=2e-5)
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+
+
+def test_decode_workspace_grows_and_keeps_its_buffers():
+    """A stream's decode workspace is reused while it is large enough and
+    grows to the larger of each need; the buffers it grew out of are kept
+    (a CUDA graph captured before may hold them), and counters start at 0."""
+    dev, stream = torch.device("cpu"), -12345
+    saved = dict(tkernel._workspaces), list(tkernel._retired)
+    try:
+        first = tkernel._decode_workspace(dev, stream, 100, 4)
+        assert tkernel._decode_workspace(dev, stream, 80, 2) is first
+        grown = tkernel._decode_workspace(dev, stream, 50, 9)
+        assert grown[0].numel() == 100 and grown[1].numel() == 9
+        assert int(grown[1].abs().sum()) == 0
+        assert any(ws is first for ws in tkernel._retired)
+        assert tkernel._decode_workspace(dev, stream + 1, 10, 1) is not grown
+    finally:
+        tkernel._workspaces.clear()
+        tkernel._workspaces.update(saved[0])
+        tkernel._retired[:] = saved[1]
+
+
+def test_decode_plan():
+    """The decode kernel's splits, for a card that holds 660 blocks at once
+    (132 SMs x 5): one split at the serve run's 48 keys; at B 4 x 32,768 as
+    many as one wave of resident blocks holds (32 blocks a split: 20), which
+    covers the SMs at least twice; at B 128 x 32,768 as many as 4096-key
+    splits need; forced counts cut to whole tiles; more than 4096 keys a
+    split refused. The plain version cuts the keys at the same places."""
+    assert tkernel.decode_plan(4, 48, 8, 4, 660) == (1, 2)
+    n, per = tkernel.decode_plan(4, 32768, 8, 4, 660)
+    assert n == 20 and 2 * 132 <= n * 4 * 8 <= 660 and per <= tkernel.DECODE_MAX_SPLIT_TILES
+    assert len(decode_split_bounds(32768, n)) == n
+    assert decode_split_bounds(32768, n)[1] == (per * 32, 2 * per * 32)
+    assert tkernel.decode_plan(128, 32768, 8, 4, 660) == (8, 128)
+    assert tkernel.split_plan(100, 7) == (4, 1)  # 4 tiles
+    assert tkernel.decode_plan(1, 40, 1, 20, 660) == (1, 2)  # 20 heads: 3 blocks of 8
+    assert tkernel.decode_rows(20) == 8 and tkernel.decode_rows(3) == 4
+    with pytest.raises(ValueError, match="4096 keys"):
+        tkernel.split_plan(32768, 1)
