@@ -9,8 +9,14 @@ Phases, each fatal on failure:
   2. hold each kernel bit for bit against its plain PyTorch version on the
      card, at the main path's shapes and at 4096 x 64, on dense, masked,
      integer-tied, batched (K = 4) and NaN-holding inputs (the collection
-     also on near ties: weights one ulp apart that round to equal gains),
-     and time both (the collection also per selection);
+     also on near ties: weights one ulp apart that round to equal gains;
+     assignment and pairing on row-dominated weights, w_ij = a_i b_ij, so
+     that every column ranks the same rows first), and time both at the
+     main and big shapes, a fleet's K = 8 x 1024 x 32 and (assignment,
+     pairing) row-dominated 1024 x 32: CUDA events around back-to-back
+     calls and device time per call by CUDA graph replay, per selection
+     too, with the design variant each launch took and ptxas's registers
+     and spills;
   3. check the keyed network sampler on the card (padded and unpadded
      slices draw the same true block, bit for bit; the card draws the CPU's
      bits), then drive the main path -- ``run(cfg, LDS, T)`` and
@@ -119,13 +125,17 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
 # Phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def kernel_inputs(torch, op: str, shape, case: str, seed: int):
+def kernel_inputs(torch, op: str, shape, case: str, seed: int, k: int = 0):
     """Inputs of one matcher on the card, made from a numpy seed. Values
     follow the main path: log-weights about 0..14 with -inf holes, linear
-    weights d (mu - eta - c) of both signs, solo/pair objectives."""
+    weights d (mu - eta - c) of both signs, solo/pair objectives. k > 0
+    stacks k problems (case "batched": 4). Row-dominated: w_ij = a_i b_ij
+    with a_i over three decades, so every column ranks the same rows first
+    (pairing: pair_jk = a_j a_k b_jk, every row's best column the same few
+    ECs)."""
     rng = np.random.default_rng(seed)
     n, m = shape
-    lead = (4,) if case == "batched" else ()
+    lead = (k,) if k else ((4,) if case == "batched" else ())
     if op == "collection" and case == "near_tie":
         # Each EC column holds weights in [12, 16) at most 7 ulps apart;
         # under penalties up to about 4.5, weights one ulp apart round to
@@ -133,6 +143,12 @@ def kernel_inputs(torch, op: str, shape, case: str, seed: int):
         base = rng.uniform(12.0, 15.9, m).astype(np.float32).view(np.int32)
         w = (base[None, :] + rng.integers(0, 8, (n, m)).astype(np.int32)).view(np.float32)
         args = [w]
+    elif op == "pairing" and case == "row_dominated":
+        a = 10.0 ** rng.uniform(0.0, 3.0, (*lead, m))
+        b = rng.uniform(0.5, 1.5, (*lead, m, m))
+        b = (b + np.swapaxes(b, -1, -2)) / 2
+        args = [(a * a * np.diagonal(b, axis1=-2, axis2=-1)).astype(np.float32),
+                (a[..., :, None] * a[..., None, :] * b).astype(np.float32)]
     elif op == "pairing":
         if case == "ties":
             solo = rng.integers(-2, 6, (*lead, m)).astype(np.float32)
@@ -147,6 +163,9 @@ def kernel_inputs(torch, op: str, shape, case: str, seed: int):
     else:
         if case == "ties":
             w = rng.integers(-2, 12, (*lead, n, m)).astype(np.float32)
+        elif case == "row_dominated":
+            a = 10.0 ** rng.uniform(0.0, 3.0, (*lead, n, 1))
+            w = (a * rng.uniform(0.5, 1.5, (*lead, n, m))).astype(np.float32)
         elif op == "collection":
             w = np.log(rng.uniform(1.0, 1e6, (*lead, n, m))).astype(np.float32)
             w[rng.random(w.shape) < 0.2] = -np.inf
@@ -190,17 +209,40 @@ def greedy_ops(op: str, n: int, m: int, takes: int) -> float:
     return e * math.ceil(math.log2(e)) + e
 
 
+def matcher_ptxas(kernel) -> dict:
+    """Registers and spills of each matcher kernel instance."""
+    def short(mangled):
+        m = re.search(r"greedy_(collection|assignment|pairing_warp|pairing_wide)_kernel"
+                      r"(?:IL[bi](\d+)E)?", mangled)
+        return f"{m.group(1)}{'<' + m.group(2) + '>' if m.group(2) else ''}" if m else None
+
+    out = ptxas_report(kernel.library_path(), short)
+    if not out:
+        fail("the matchers' build log names no greedy kernel")
+    return out
+
+
+# Timing cells of phase 2: (label, problems, shape, case). "batched" is a
+# fleet's K = 8 slices at the main shape; "row_dominated" weights make every
+# column rank the same rows first (the collection has no such cell).
+MATCHER_TIMINGS = (("main", 1, MAIN_SHAPE, "dense"), ("big", 1, BIG_SHAPE, "dense"),
+                   ("batched", 8, MAIN_SHAPE, "dense"),
+                   ("row_dominated", 1, MAIN_SHAPE, "row_dominated"))
+
+
 def phase_kernels(torch, ops, kernel, ref):
     names = {"collection": "greedy_collection", "assignment": "greedy_assignment",
              "pairing": "greedy_pairing"}
     cases = ("dense", "masked", "ties", "batched", "nan")
+    extra = {"collection": ("near_tie",), "assignment": ("row_dominated",),
+             "pairing": ("row_dominated",)}
     results = {}
     for idx, op in enumerate(("collection", "assignment", "pairing")):
         checks = []
         max_err = 0.0
         for shape in (MAIN_SHAPE, BIG_SHAPE):
             pshape = (shape[1], shape[1]) if op == "pairing" else shape
-            for c, case in enumerate(cases + (("near_tie",) if op == "collection" else ())):
+            for c, case in enumerate(cases + extra[op]):
                 args, masks = kernel_inputs(torch, op, pshape, case, 1000 * idx + 10 * c + shape[1])
                 got = op_call(ops, op, args, masks, "kernel")
                 want = op_call(ops, op, args, masks, "ref")
@@ -210,53 +252,77 @@ def phase_kernels(torch, ops, kernel, ref):
                 max_err = max(max_err, err)
                 checks.append({"shape": list(pshape), "case": case, "bit_equal": equal,
                                "tile_in_smem": kernel.tile_in_smem[names[op]],
+                               "variant": kernel.variant[names[op]],
                                "selected": float(got.sum())})
                 if not equal:
                     fail(f"{names[op]} differs from its plain version at {pshape} "
                          f"({case}): max abs err {err}")
-        results[op] = {"checks": checks, "max_abs_err": max_err}
-
-    # Times at the main path's shapes (and 4096 x 64), dense inputs: the
-    # wrapper alone against the plain version on the same tensors.
-    for idx, op in enumerate(("collection", "assignment", "pairing")):
-        timing = {}
-        for label, shape in (("main", MAIN_SHAPE), ("big", BIG_SHAPE)):
-            n, m = (shape[1], shape[1]) if op == "pairing" else shape
-            (args, _) = kernel_inputs(torch, op, (n, m), "dense", 7 + idx)
-            if op == "collection":
-                logw = args[0].reshape(1, n, m).contiguous()
-                pen = ref.penalty_table(n, logw.device)
-                run_k = lambda: kernel.greedy_collection_cuda(logw, pen)  # noqa: E731
-                run_p = lambda: ref.greedy_collection_ref(logw)  # noqa: E731
-                n_in = 2 * n * m + n + 1  # logw + pen read, alpha written (floats)
-            elif op == "assignment":
-                w = args[0].reshape(1, n, m).contiguous()
-                run_k = lambda: kernel.greedy_assignment_cuda(w)  # noqa: E731
-                run_p = lambda: ref.greedy_assignment_ref(w)  # noqa: E731
-                n_in = 2 * n * m
-            else:
-                w = ref.pairing_value_matrix(*args).reshape(1, m, m).contiguous()
-                run_k = lambda: kernel.greedy_pairing_cuda(w)  # noqa: E731
-                run_p = lambda: ref.greedy_pairing_values(w)  # noqa: E731
-                n_in = 2 * m * m
-            out = run_k()
-            torch.cuda.synchronize()
-            takes = int(out.sum()) if op != "pairing" else int(torch.triu(out[0]).sum())
-            ops_needed = greedy_ops(op, n, m, takes)
-            bound_bytes = 4.0 * n_in / H100_BYTES_PER_S * 1e3
-            bound_ops = ops_needed / H100_FP32_OPS_PER_S * 1e3
-            k_ms = cuda_ms(torch, run_k, reps=20, warmup=2)
-            p_ms = cuda_ms(torch, run_p, reps=3 if label == "main" else 1, warmup=1)
-            timing[label] = {
-                "shape": [n, m], "selections": takes, "ops_needed": ops_needed,
-                "ms": k_ms, "plain_ms": p_ms,
-                # The selections taken plus the step that finds no gain.
-                "us_per_selection": k_ms * 1e3 / (takes + 1),
-                "bound_ms": max(bound_bytes, bound_ops),
-                "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-            }
-        results[op]["timing"] = timing
+        timing = time_matchers(torch, kernel, ref, op)
+        for label, tm in timing.items():
+            if not tm["bit_equal"]:
+                fail(f"{names[op]} differs from its plain version in the {label} timing cell")
+        results[op] = {"checks": checks, "max_abs_err": max_err, "timing": timing}
     return results
+
+
+def time_matchers(torch, kernel, ref, op: str, plain: bool = True) -> dict:
+    """Times of one matcher's wrapper alone against its plain version on the
+    same tensors, in each cell of MATCHER_TIMINGS: CUDA events around
+    back-to-back calls ("ms", which the host bounds at a few microseconds of
+    kernel) and device time per call by CUDA graph replay ("device_ms").
+    ``kernel`` may be an older tree's module (``scripts/matcher_times.py``)."""
+    name = f"greedy_{op}"
+    idx = ("collection", "assignment", "pairing").index(op)
+    timing = {}
+    for label, k, shape, case in MATCHER_TIMINGS:
+        if case == "row_dominated" and op == "collection":
+            continue
+        n, m = (shape[1], shape[1]) if op == "pairing" else shape
+        (args, _) = kernel_inputs(torch, op, (n, m), case, 7 + idx, k=k)
+        if op == "collection":
+            logw = args[0].reshape(k, n, m).contiguous()
+            pen = ref.penalty_table(n, logw.device)
+            run_k = lambda: kernel.greedy_collection_cuda(logw, pen)  # noqa: E731
+            run_p = lambda: ref.greedy_collection_ref(logw)  # noqa: E731
+            n_in = k * 2 * n * m + n + 1  # logw + pen read, alpha written (floats)
+        elif op == "assignment":
+            w = args[0].reshape(k, n, m).contiguous()
+            run_k = lambda: kernel.greedy_assignment_cuda(w)  # noqa: E731
+            run_p = lambda: ref.greedy_assignment_ref(w)  # noqa: E731
+            n_in = k * 2 * n * m
+        else:
+            w = ref.pairing_value_matrix(*args).reshape(k, m, m).contiguous()
+            run_k = lambda: kernel.greedy_pairing_cuda(w)  # noqa: E731
+            run_p = lambda: ref.greedy_pairing_values(w)  # noqa: E731
+            n_in = k * 2 * m * m
+        out = run_k()
+        want = run_p()
+        want = want[0] if op == "collection" else want
+        torch.cuda.synchronize()
+        per = out.sum(dim=(1, 2)) if op != "pairing" else torch.triu(out).sum(dim=(1, 2))
+        takes = [int(t) for t in per.tolist()]
+        ops_needed = sum(greedy_ops(op, n, m, t) for t in takes)
+        bound_bytes = 4.0 * n_in / H100_BYTES_PER_S * 1e3
+        bound_ops = ops_needed / H100_FP32_OPS_PER_S * 1e3
+        k_ms = cuda_ms(torch, run_k, reps=20, warmup=2)
+        calls = int(min(64, max(2, round(20.0 / k_ms))))
+        d_ms = graph_ms_per_call(torch, run_k, calls=calls, reps=3)
+        p_ms = cuda_ms(torch, run_p, reps=3 if label == "main" else 1, warmup=1) \
+            if plain else None
+        steps = max(takes) + 1  # the selections plus the step that finds no gain
+        timing[label] = {
+            "shape": [k, n, m] if k > 1 else [n, m], "case": case,
+            "selections": sum(takes), "ops_needed": ops_needed,
+            "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
+            "us_per_selection": k_ms * 1e3 / steps,
+            "device_us_per_selection": d_ms * 1e3 / steps,
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "bit_equal": bool(torch.equal(out, want)),
+            "variant": getattr(kernel, "variant", {}).get(name, "block_rescan"),
+            "tile_in_smem": kernel.tile_in_smem[name],
+        }
+    return timing
 
 
 # --------------------------------------------------------------------------
@@ -1229,10 +1295,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kres = phase_kernels(torch, ops, kernel, ref)
     print(f"phase 2 kernels vs plain: all bit-equal ({time.perf_counter() - t0:.1f} s)")
-    for label, tm in kres["collection"]["timing"].items():
-        print(f"phase 2 greedy_collection {label} {tm['shape']}: {tm['ms']:.5g} ms, "
-              f"{tm['selections']} selections, {tm['us_per_selection']:.5g} us a selection "
-              f"(plain {tm['plain_ms']:.5g} ms)")
+    for op, r in kres.items():
+        for label, tm in r["timing"].items():
+            print(f"phase 2 greedy_{op} {label} {tm['shape']} ({tm['variant']}): device "
+                  f"{tm['device_ms']:.5g} ms ({tm['device_us_per_selection']:.5g} us a step), "
+                  f"event {tm['ms']:.5g} ms, {tm['selections']} selections, bound "
+                  f"{tm['bound_ms']:.4g} ms, plain {tm['plain_ms']:.5g} ms")
+    matcher_regs = matcher_ptxas(kernel)
+    print(f"phase 2 matcher kernels (ptxas registers and spills): {json.dumps(matcher_regs)}")
     # Phase 3 times host-bound loops on the host clock: the builds must not
     # share the CPU with them.
     lm_build_s = {name: builds[name].result() for name in ("flash_attention", "mamba1_scan")}
@@ -1334,12 +1404,15 @@ def main(argv=None) -> int:
             "replaces": sources[op],
             "launches": main_res["l-ds"]["launches"][f"greedy_{op}"],
             "launches_ds": main_res["ds"]["launches"][f"greedy_{op}"],
-            "max_abs_err": r["max_abs_err"], "ms": tm["ms"], "kernel_ms": tm["ms"],
-            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-            "library_ms": None, "shape": tm["shape"],
-            "selections": tm["selections"], "us_per_selection": tm["us_per_selection"],
+            "max_abs_err": r["max_abs_err"], "ms": tm["device_ms"], "device_ms": tm["device_ms"],
+            "event_ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+            "bound_by": tm["bound_by"], "library_ms": None, "shape": tm["shape"],
+            "variant": tm["variant"], "selections": tm["selections"],
+            "device_us_per_selection": tm["device_us_per_selection"],
             "bit_equal": all(c["bit_equal"] for c in r["checks"]),
-            "big": r["timing"]["big"],
+            **{label: r["timing"][label] for label in ("big", "batched", "row_dominated")
+               if label in r["timing"]},
+            "ptxas": {k: v for k, v in matcher_regs.items() if k.startswith(op)},
         })
     fa_replaces = "src/repro/kernels/flash_attention/kernel.py:133"
     fa = lm_kres["flash_attention"]
@@ -1432,6 +1505,7 @@ def main(argv=None) -> int:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
             "card": smi, "torch": torch.__version__, "build_s": build_s, "kernels": kres,
+            "matcher_ptxas": matcher_regs,
             "sampler": sampler, "main_path": main_res, "training_ms": train_ms,
             "profile": prof,
             "parity": parity, "lm_build_s": lm_build_s, "wgmma_sass": sass,

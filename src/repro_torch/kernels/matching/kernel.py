@@ -1,8 +1,9 @@
 """ctypes wrappers of the greedy matching CUDA kernels (``csrc/``).
 
 Each wrapper takes contiguous float32 CUDA tensors with one leading batch
-axis, allocates its output, launches one thread block per problem on
-PyTorch's current stream and raises if the launch fails. It counts its
+axis, allocates its output, launches one kernel on PyTorch's current stream
+(one thread block per problem; pairing one warp per problem, several a
+block) and raises if the launch fails. It counts its
 launches in ``launches``: one per kernel launch, nowhere else. The library
 is built by ``nvcc`` on the first launch (``kernels/_build.py``), never at
 import, so this module imports on a machine without CUDA.
@@ -21,14 +22,19 @@ import torch
 from .. import _build
 
 SOURCES = (Path(__file__).parent / "csrc" / "greedy_matching.cu",)
-# Bit-equality with the plain versions needs uncontracted a*b+c (_build.py).
-EXTRA_FLAGS = ("--fmad=false",)
+# Bit-equality with the plain versions needs uncontracted a*b+c (_build.py);
+# ptxas's registers and spills land in the build log.
+EXTRA_FLAGS = ("--fmad=false", "-Xptxas", "-v")
+# The assignment kernel's chain warp holds up to two columns a lane.
+ASSIGNMENT_MAX_M = 64
 
 # Launch counts per kernel name, bumped by the wrappers below.
 launches = {"greedy_collection": 0, "greedy_assignment": 0, "greedy_pairing": 0}
-# Whether each kernel's last launch kept its tile in shared memory (else it
-# read the tile from global memory); reported by the launcher itself.
+# Whether each kernel's last launch kept its whole tile in shared memory
+# (else it read it from global memory, or streamed it in row chunks), and the
+# design it ran; both reported by the launcher itself.
 tile_in_smem: dict[str, bool] = {}
+variant: dict[str, str] = {}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -57,6 +63,10 @@ def build() -> None:
     _library()
 
 
+def library_path() -> Path:
+    return _build.library_path("greedy_matching", SOURCES, EXTRA_FLAGS)
+
+
 def reset_launch_counts() -> None:
     for name in launches:
         launches[name] = 0
@@ -73,13 +83,19 @@ def _check(t: torch.Tensor, name: str, ndim: int) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _launched(err: int, in_smem: ctypes.c_int, name: str) -> None:
-    """Raise if the launch failed; else count it and note the tile's place."""
+def _launched(err: int, code: ctypes.c_int, name: str) -> None:
+    """Raise if the launch failed; else count it and note the variant the
+    launcher reported: bit 0, the whole tile in shared memory; bit 1, the
+    pairing's register variant (M <= 64, rows in registers; else the wide
+    one)."""
     if err != 0:
         msg = _library().greedy_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
     launches[name] += 1
-    tile_in_smem[name] = bool(in_smem.value)
+    tile_in_smem[name] = bool(code.value & 1)
+    variant[name] = {"greedy_collection": "column_maxima",
+                     "greedy_assignment": "candidate_lists",
+                     "greedy_pairing": "warp" if code.value & 2 else "wide"}[name]
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -109,9 +125,12 @@ def greedy_collection_cuda(logw: torch.Tensor, pen: torch.Tensor) -> torch.Tenso
 
 
 def greedy_assignment_cuda(w: torch.Tensor) -> torch.Tensor:
-    """w (K, N, M) -> alpha (K, N, M) in {0,1}."""
+    """w (K, N, M) -> alpha (K, N, M) in {0,1}; N < 2^16, M <= 64."""
     _check(w, "greedy_assignment w", 3)
     k, n, m = w.shape
+    if n >= 1 << 16 or m > ASSIGNMENT_MAX_M:
+        raise ValueError(f"greedy_assignment: the kernel takes N < 65536 and "
+                         f"M <= {ASSIGNMENT_MAX_M}, got {tuple(w.shape)}")
     alpha = torch.empty_like(w)
     if w.numel() == 0:
         return alpha
@@ -124,7 +143,9 @@ def greedy_assignment_cuda(w: torch.Tensor) -> torch.Tensor:
 
 
 def greedy_pairing_cuda(w: torch.Tensor) -> torch.Tensor:
-    """Value matrix w (K, M, M) (diagonal = solo) -> match (K, M, M)."""
+    """Value matrix w (K, M, M) (diagonal = solo) -> match (K, M, M); one
+    warp a problem, the free set in registers up to M = 64 ("warp"), in
+    shared memory above ("wide")."""
     _check(w, "greedy_pairing w", 3)
     k, m, m2 = w.shape
     if m != m2:

@@ -15,7 +15,8 @@ a CUDA tensor raises.
 Optional ``cu_mask`` (..., N) / ``ec_mask`` (..., M) entity masks force the
 weight of any pair touching a padded entity to ``MASKED_WEIGHT`` here, once,
 before dispatch, so kernel and plain version stay mask-free. Leading batch
-axes are flattened into one axis (one CUDA block per problem).
+axes are flattened into one axis (one CUDA block per problem; pairing one
+warp per problem).
 """
 from __future__ import annotations
 

@@ -413,6 +413,126 @@ def test_greedy_collection_matches_plain_version(card, shape, case):
     assert mkernel.tile_in_smem["greedy_collection"] == (shape != (4096, 64))
 
 
+MATCHER_CASES = ["dense", "masked", "ties", "nan_inf", "batched", "row_dominated",
+                 "non_positive"]
+
+
+def assignment_weights(rng, shape, case):
+    """Plain-P1 weights: d (mu - eta - c) of both signs (the main path's
+    range), small integers (ties), NaN / +-inf (+inf entries tie), K = 8
+    problems, all non-positive, or row-dominated: w_ij = a_i b_ij with a_i
+    spread over three decades, so every column ranks the same rows first."""
+    n, m = shape
+    lead = (8,) if case == "batched" else ()
+    if case == "ties":
+        return rng.integers(-2, 4, (n, m)).astype(np.float32)
+    if case == "row_dominated":
+        a = 10.0 ** rng.uniform(0.0, 3.0, (n, 1))
+        return (a * rng.uniform(0.5, 1.5, (n, m))).astype(np.float32)
+    if case == "non_positive":
+        return -rng.uniform(0.0, 1e6, (n, m)).astype(np.float32)
+    w = rng.uniform(-5e5, 1e6, (*lead, n, m)).astype(np.float32)
+    if case == "nan_inf":
+        w[rng.random(w.shape) < 0.02] = np.nan
+        w[rng.random(w.shape) < 0.02] = np.inf
+        w[rng.random(w.shape) < 0.02] = -np.inf
+    return w
+
+
+def _entity_masks(rng, card, n, m, pairing=False):
+    cu = (rng.random(n) > 0.3).astype(np.float32)
+    ec = (rng.random(m) > 0.3).astype(np.float32)
+    cu[0] = ec[0] = 1.0
+    masks = {"ec_mask": torch.as_tensor(ec, device=card)}
+    if not pairing:
+        masks["cu_mask"] = torch.as_tensor(cu, device=card)
+    return masks
+
+
+@pytest.mark.parametrize("case", MATCHER_CASES)
+@pytest.mark.parametrize("shape", [(1024, 32), (4096, 64), (333, 7), (7, 40)], ids=str)
+def test_greedy_assignment_matches_plain_version(card, shape, case):
+    """The assignment kernel (candidate lists, a warp-only chain) against its
+    plain version on the card, bit for bit, one launch a call; at (7, 40)
+    the chain ends when the 7 rows are taken."""
+    n, m = shape
+    rng = np.random.default_rng(n + 3 * m + len(case))
+    w = torch.as_tensor(assignment_weights(rng, shape, case), device=card)
+    masks = _entity_masks(rng, card, n, m) if case == "masked" else {}
+    before = mkernel.launches["greedy_assignment"]
+    got = mops.greedy_assignment(w, impl="kernel", **masks)
+    assert mkernel.launches["greedy_assignment"] == before + 1
+    assert torch.equal(got, mops.greedy_assignment(w, impl="ref", **masks))
+    taken = got.sum(dim=(-2, -1))
+    if case == "non_positive":
+        assert float(taken.max()) == 0.0
+    else:
+        assert float(taken.min()) > 0 and float(taken.max()) <= min(n, m)
+    assert mkernel.variant["greedy_assignment"] == "candidate_lists"
+    assert mkernel.tile_in_smem["greedy_assignment"] == (shape != (4096, 64))
+
+
+def pairing_values(rng, m, case):
+    """(solo, pair) of the Thm.-2 pairing: objectives of both signs, small
+    integers (ties; asymmetric_ties leaves pair unsymmetrised, so ties fall
+    to the lower flat index j M + k), NaN / +-inf, K = 8 problems, all
+    non-positive, or row-dominated: pair_jk = a_j a_k b_jk with a spread over
+    three decades, so every row's best column is the same few ECs."""
+    lead = (8,) if case == "batched" else ()
+    if case in ("ties", "asymmetric_ties"):
+        solo = rng.integers(-2, 6, (m,)).astype(np.float32)
+        pair = rng.integers(-2, 8, (m, m)).astype(np.float32)
+        if case == "ties":
+            pair = np.maximum(pair, pair.T)
+        return solo, pair
+    if case == "row_dominated":
+        a = 10.0 ** rng.uniform(0.0, 3.0, m)
+        b = rng.uniform(0.5, 1.5, (m, m))
+        return ((a * a) * np.diag(b) * 0.5).astype(np.float32), \
+            (a[:, None] * a[None, :] * (b + b.T) / 2).astype(np.float32)
+    if case == "non_positive":
+        return -rng.uniform(0, 1e3, (m,)).astype(np.float32), \
+            -rng.uniform(0, 1e3, (m, m)).astype(np.float32)
+    solo = rng.uniform(-1e3, 1e4, (*lead, m)).astype(np.float32)
+    pair = rng.uniform(-2e3, 2e4, (*lead, m, m)).astype(np.float32)
+    pair = np.maximum(pair, np.swapaxes(pair, -1, -2))
+    if case == "nan_inf":
+        pair[..., m // 3, m // 2] = pair[..., m // 2, m // 3] = np.nan
+        pair[..., 0, m - 1] = pair[..., m - 1, 0] = np.inf  # apart from the NaN at every M
+    return solo, pair
+
+
+@pytest.mark.parametrize("case", MATCHER_CASES + ["asymmetric_ties"])
+@pytest.mark.parametrize("m", [5, 32, 64, 100])
+def test_greedy_pairing_matches_plain_version(card, m, case):
+    """The pairing kernel (one warp a problem) against its plain version on
+    the card, bit for bit, one launch a call: the register variant up to
+    M = 64, the wide one at M = 100. A NaN among the free entries stops the
+    loop before anything is taken."""
+    rng = np.random.default_rng(7 * m + len(case))
+    solo, pair = (torch.as_tensor(a, device=card) for a in pairing_values(rng, m, case))
+    masks = _entity_masks(rng, card, 1, m, pairing=True) if case == "masked" else {}
+    before = mkernel.launches["greedy_pairing"]
+    got = mops.greedy_pairing(solo, pair, impl="kernel", **masks)
+    assert mkernel.launches["greedy_pairing"] == before + 1
+    assert torch.equal(got, mops.greedy_pairing(solo, pair, impl="ref", **masks))
+    if case in ("non_positive", "nan_inf"):
+        assert float(got.sum()) == 0.0
+    else:
+        assert float(got.sum()) > 0
+    assert torch.equal(got, got.transpose(-1, -2))
+    # Up to M = 64 each lane holds its rows in registers; the wide variant
+    # keeps the tile in shared memory.
+    assert mkernel.variant["greedy_pairing"] == ("warp" if m <= 64 else "wide")
+    assert mkernel.tile_in_smem["greedy_pairing"] == (m > 64)
+
+
+def test_greedy_assignment_refuses_more_than_64_ecs(card):
+    w = torch.ones(4, 65, device=card)
+    with pytest.raises(ValueError, match="M <= 64"):
+        mops.greedy_assignment(w, impl="kernel")
+
+
 def test_sampler_draws_the_same_bits_on_card_and_cpu(card):
     """The keyed sampler's 32-bit words, its uniforms and the heterogeneity
     are bit-identical on the card and on the CPU, at the main path's

@@ -33,7 +33,7 @@ from repro_torch.kernels.matching.ref import (_marginal_penalty,  # noqa: E402
                                               greedy_pairing_ref,
                                               pairing_value_matrix)
 
-SHAPES = [(8, 3), (128, 16), (512, 16)]
+SHAPES = [(8, 3), (128, 16), (512, 16), (6, 9)]  # (6, 9): M > N
 
 
 def _logw(rng, n, m, inf_frac=0.2):
@@ -119,23 +119,51 @@ def test_against_pallas_interpret():
            greedy_pairing_pallas(j_value_matrix(_j(solo), _j(pair)), interpret=True))
 
 
-@pytest.mark.parametrize("op", ["collection", "assignment", "pairing"])
+@pytest.mark.parametrize("op", ["collection", "assignment", "pairing", "assignment_inf_ties",
+                                "assignment_row_dominated", "pairing_row_dominated",
+                                "pairing_asymmetric"])
 def test_integer_ties_match_jax(op):
     """Many equal weights: the first maximum in row-major order must win in
-    both packages."""
+    both packages. The cases the CUDA designs are sensitive to are also held
+    against the Pallas kernels in interpret mode: +inf entries that tie
+    (assignment takes them, lowest flat index first), row-dominated weights
+    w_ij = a_i b_ij (every column ranks the same rows first; integer b, so
+    rows tie too), and an asymmetric tied value matrix (ties fall to the
+    lower flat index j M + k)."""
     rng = np.random.default_rng(11)
     n, m = 64, 8
     if op == "collection":
         logw = rng.integers(-2, 6, (n, m)).astype(np.float32)
         _equal(tops.greedy_collection(_t(logw))[0], jops.greedy_collection(_j(logw))[0])
-    elif op == "assignment":
-        w = rng.integers(-2, 4, (n, m)).astype(np.float32)
-        _equal(tops.greedy_assignment(_t(w)), jops.greedy_assignment(_j(w)))
+    elif op.startswith("assignment"):
+        if op == "assignment_inf_ties":
+            w = rng.integers(-2, 4, (n, m)).astype(np.float32)
+            w[rng.random((n, m)) < 0.1] = np.inf
+            w[rng.random((n, m)) < 0.05] = np.nan
+        elif op == "assignment_row_dominated":
+            a = np.array([1.0, 10.0, 100.0, 1000.0])[rng.integers(0, 4, (n, 1))]
+            w = (a * rng.integers(1, 4, (n, m))).astype(np.float32)
+        else:
+            w = rng.integers(-2, 4, (n, m)).astype(np.float32)
+        a_t = tops.greedy_assignment(_t(w))
+        _equal(a_t, jops.greedy_assignment(_j(w)))
+        if op != "assignment":
+            _equal(a_t, greedy_assignment_pallas(_j(w), interpret=True))
+            assert a_t.sum() == m
     else:
         solo = rng.integers(-1, 3, (m,)).astype(np.float32)
         pair = rng.integers(-1, 4, (m, m)).astype(np.float32)
-        pair = np.maximum(pair, pair.T)
-        _equal(tops.greedy_pairing(_t(solo), _t(pair)), jops.greedy_pairing(_j(solo), _j(pair)))
+        if op == "pairing_row_dominated":
+            a = np.array([1.0, 10.0, 100.0])[rng.integers(0, 3, m)]
+            solo, pair = solo * a * a, pair * a[:, None] * a[None, :]
+        if op != "pairing_asymmetric":
+            pair = np.maximum(pair, pair.T)
+        mt = tops.greedy_pairing(_t(solo), _t(pair))
+        _equal(mt, jops.greedy_pairing(_j(solo), _j(pair)))
+        if op != "pairing":
+            vals = pairing_value_matrix(_t(solo), _t(pair)).numpy()
+            _equal(mt, greedy_pairing_pallas(_j(vals), interpret=True))
+            assert mt.sum() > 0
 
 
 def test_nan_rules_match_jax():
