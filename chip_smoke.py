@@ -30,7 +30,8 @@ Phases, each fatal on failure:
      and are done before phase 3's host-clock timings),
      check with ``cuobjdump -sass`` that the bf16 prefill attention kernel
      runs its products as HGMMA (wgmma) instructions, and print ptxas's
-     registers and spills of the wgmma, decode attention and scan kernels;
+     registers and spills of the wgmma, decode attention, SIMT attention
+     and scan kernels;
   6. hold the LM kernels against their plain PyTorch versions on the
      card at the LM serving path's shapes (attention prefill B 4 x 2048,
      H 32 / Hkv 8, hd 128 on the wgmma kernel; decode on the decode kernel
@@ -43,16 +44,21 @@ Phases, each fatal on failure:
      x_proj-shaped tensor as the model passes them, at S = 1 with h0, over
      8192 steps and at N = 32; windows, soft-cap, prefix, ragged lengths,
      8,192 and 32,768 keys,
-     hd 64 / 80 / 128, Hkv 1 / 2 / 8, rows that see no key, in bf16 and
-     float32), check which attention kernel each case launched, and time
-     kernel, plain version and, for attention, torch's
+     hd 36 / 64 / 80 / 128 / 256, Hkv 1 / 2 / 8 / 32, rows that see no key,
+     in bf16 and float32; minitron-4b's 16-token forward and the bf16
+     B 4 x 2048 prefills of zamba2-2.7b's and paligemma-3b's attention on
+     the SIMT kernel), check which attention kernel each case launched, and
+     time kernel, plain version and, for attention, torch's
      scaled_dot_product_attention (the bf16 prefill also on the SIMT
-     kernel); the scan's decode also as device time per call under
+     kernel; every SIMT case, and SDPA at the 16-token forward, the serve
+     run's decode and the two new prefills, as device time per call by CUDA
+     graph replay); the scan's decode also as device time per call under
      torch.profiler;
   7. serve minitron-4b at full size through ``repro_torch.launch.serve``
      (B 4, prompt 16, 32 generated), then check decode against forward,
      exact launch counts per forward (SIMT attention) and per decode step
-     (decode attention), time a B 4 x 2048 prefill (wgmma attention in all
+     (decode attention), profile the 16-token forward (device busy time and
+     the SIMT kernel's share), time a B 4 x 2048 prefill (wgmma attention in all
      32 layers), and time one decode step at B 4 over 32,768 filled cache
      positions against the same step with the plain attention;
   8. the same for falcon-mamba-7b;
@@ -587,6 +593,20 @@ def decode_ptxas(fkernel) -> dict:
     return out
 
 
+def simt_ptxas(fkernel) -> dict:
+    """Registers and spills of each instance of the SIMT attention kernel
+    (storage type, padded head dim, rows a block)."""
+    def short(mangled):  # flash_fwd_kernel<T, HDP, R>
+        m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)EE", mangled)
+        return (f"{'f32' if m.group(1) == 'f' else 'bf16'}_hd{m.group(2)}_rows{m.group(3)}"
+                if m else None)
+
+    out = ptxas_report(fkernel.library_path(), short)
+    if len(out) != 22:  # 2 types x (4 row tiles at hd 64 and 128, 3 at hd 256)
+        fail(f"the flash library's build log names {len(out)} of the 22 SIMT kernel instances")
+    return out
+
+
 def wgmma_sass(fkernel, cuda_tool) -> dict:
     """HGMMA instructions in the SASS of each instance of the wgmma kernel
     (``cuobjdump -sass`` on the built library), with ptxas's registers and
@@ -694,6 +714,20 @@ def plain_attention(torch, fops, q, k, v, qp, kp, spec, valid, rows_at_once=None
         for i in range(0, q.shape[0], n)])
 
 
+def sdpa_call(torch, fref, q, k, v, qp, kp, spec, valid):
+    """One scaled_dot_product_attention call that computes the same function
+    on the same inputs: the causal flag where positions are the indices and
+    nothing else masks, else the boolean mask, built outside the call."""
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if spec == fref.AttnSpec() and valid is None and q.shape[1] == k.shape[1] and bool(
+            (qp == torch.arange(q.shape[1], device=qp.device)).all()) and bool(
+            (kp == torch.arange(k.shape[1], device=kp.device)).all()):
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    amask = fref.attention_mask(qp, kp, spec, valid)[:, None]
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask, enable_gqa=True)
+
+
 def graph_ms_per_call(torch, fn, calls: int, reps: int) -> float:
     """Device time of one call of ``fn`` (one kernel launch): ``calls``
     calls captured in a CUDA graph, replayed ``reps`` times between CUDA
@@ -737,7 +771,6 @@ def scan_bound(x, b, c, h0):
 
 
 def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
-    F = torch.nn.functional
     bf16, f32 = torch.bfloat16, torch.float32
     AttnSpec = fref.AttnSpec
     # name, (B, Sq, Skv, H, Hkv, hd), dtype, spec, decode
@@ -783,8 +816,19 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
         ("decode32k_b128_bf16", (128, 1, 32768, 32, 8, 128), bf16, AttnSpec(), "filled"),
     ]
     # minitron-4b's 16-token forward, the SIMT kernel's one launch on a
-    # driven path now that decode has its own kernel.
-    attn_cases.append(("forward16_bf16", (4, 16, 16, 32, 8, 128), bf16, AttnSpec(), False))
+    # driven path now that decode has its own kernel; the bf16 B 4 x 2048
+    # prefills of zamba2-2.7b's attention (H 32 / 32, hd 80) and
+    # paligemma-3b's (H 8 / 1, hd 256, a 256-token prefix), which the SIMT
+    # kernel takes (ROADMAP.md Queue 1 item 4); decode at an odd head dim.
+    attn_cases += [
+        ("forward16_bf16", (4, 16, 16, 32, 8, 128), bf16, AttnSpec(), False),
+        ("prefill_hd80_bf16", (4, 2048, 2048, 32, 32, 80), bf16, AttnSpec(), False),
+        ("prefill_hd256_bf16", (4, 2048, 2048, 8, 1, 256), bf16, AttnSpec(prefix_len=256), False),
+        ("decode_hd36_f32", (4, 1, 48, 32, 8, 36), f32, AttnSpec(), True),
+    ]
+    # SDPA's device time by graph replay (its event time is host-bound at
+    # the short shapes).
+    library_device = ("forward16_bf16", "decode_bf16", "prefill_hd80_bf16", "prefill_hd256_bf16")
     attn = {}
     for idx, (name, (b, sq, skv, h, hkv, hd), dtype, spec, decode) in enumerate(attn_cases):
         q, k, v, qp, kp, valid = attn_inputs(torch, b, sq, skv, h, hkv, hd, dtype, 100 + idx,
@@ -830,10 +874,15 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
         if route == "decode":
             res["n_split"] = fkernel.decode_plan(
                 b, skv, hkv, h // hkv, fkernel.decode_slots(q.device, dtype, hd, h // hkv))[0]
-        if route == "decode" or name == "forward16_bf16":
+        if route in ("decode", "simt"):  # every SIMT case, timed and written down
+            heavy = long or sq * skv > 1_000_000
             res["device_ms"] = graph_ms_per_call(torch, lambda: fops.flash_attention(
                 q, k, v, qp, kp, spec, kv_valid=valid, impl="kernel"),
-                4 if long else 64, 3 if long else 10)
+                4 if heavy else 64, 3 if heavy else 10)
+        if route == "simt":
+            res["rows"] = fkernel.simt_rows(b, sq, hkv, h // hkv, hd,
+                                            fkernel.device_sms(q.device))
+            res["occupancy"] = fkernel.simt_occupancy(dtype, hd, res["rows"])
         if name == "prefill_bf16" or route == "decode":
             # The SIMT kernel of flash_attention.cu forced on the same inputs.
             simt = lambda: fkernel.flash_attention_cuda(  # noqa: E731
@@ -850,16 +899,10 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
             res["occupancy"] = fkernel.decode_occupancy(dtype, hd, h // hkv)
         if name == "prefill_bf16":
             res["occupancy"] = fkernel.wgmma_occupancy(hd, skv)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if name in ("prefill_bf16", "prefill_f32", "forward16_bf16"):  # Sq = Skv, positions 0..
-            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-        elif route == "decode":  # the mask as a boolean argument, built outside
-            amask = fref.attention_mask(qp, kp, spec, valid)[:, None]
-            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, attn_mask=amask, enable_gqa=True)
-        else:
-            sdpa = None
+        # Sq = Skv with positions 0 .. (the causal flag), decode (the mask as
+        # a boolean argument, built outside) and the new prefills.
+        sdpa = (sdpa_call(torch, fref, q, k, v, qp, kp, spec, valid)
+                if name.startswith(("prefill", "forward")) or route == "decode" else None)
         if sdpa is not None:
             try:
                 lib = sdpa().transpose(1, 2)
@@ -867,14 +910,20 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
                 del lib
                 res["library_ms"] = cuda_ms(torch, sdpa, reps=10 if sq > 1 else
                                             (5 if long else 200), warmup=2)
-            except torch.cuda.OutOfMemoryError as exc:
+                if name in library_device:
+                    heavy = sq * skv > 1_000_000
+                    res["library_device_ms"] = graph_ms_per_call(
+                        torch, sdpa, 4 if heavy else 64, 3 if heavy else 10)
+            except (torch.cuda.OutOfMemoryError, RuntimeError) as exc:
+                # A library call that cannot run a shape is a missing
+                # yardstick, not a fault of the port.
                 res["library_ms"] = None
-                res["library_note"] = f"scaled_dot_product_attention ran out of memory: " \
+                res["library_note"] = f"scaled_dot_product_attention failed: " \
                     f"{str(exc).splitlines()[0]}"
                 torch.cuda.empty_cache()
         attn[name] = res
-        del q, k, v, qt, kt, vt, got, want, plain, sdpa
-        simt = amask = None  # their closures hold the inputs
+        del q, k, v, got, want, plain, sdpa
+        simt = None  # its closure holds the inputs
         if big:
             torch.cuda.empty_cache()
 
@@ -1015,13 +1064,14 @@ def profile_window(torch, fn, match: str = "") -> dict:
 
 
 def phase_serve(torch, arch, serve, steps, models, get_config, kernels, counts,
-                long_cache=False):
+                forward_kernel: str, long_cache=False):
     """Serve ``arch`` at full size through the user's entry point, then
-    check decode against forward with exact launch counts and time a
-    B 4 x 2048 prefill. ``counts`` holds the exact launches of one decode
-    step ("step"; the serve run makes 48), of the 16-token forward
-    ("forward") and of the prefill ("prefill"). ``long_cache`` adds
-    ``phase_long_cache``."""
+    check decode against forward with exact launch counts, profile the
+    16-token forward (device busy time and the share of the kernels whose
+    name holds ``forward_kernel``) and time a B 4 x 2048 prefill. ``counts``
+    holds the exact launches of one decode step ("step"; the serve run makes
+    48), of the 16-token forward ("forward") and of the prefill ("prefill").
+    ``long_cache`` adds ``phase_long_cache``."""
     import gc
     cfg = get_config(arch)
     batch, prompt_len, gen = 4, 16, 32
@@ -1054,6 +1104,10 @@ def phase_serve(torch, arch, serve, steps, models, get_config, kernels, counts,
     torch.cuda.synchronize()
     out["forward_launches"] = expect_counts(kernels, f"{arch} forward of {prompt_len} tokens",
                                             counts["forward"])
+    prof = profile_window(torch, lambda: api.forward(model, {"tokens": prompt}),
+                          match=forward_kernel)
+    out["forward_profile"] = {**prof, "kernel": forward_kernel,
+                              "kernel_share": prof["match_ms"] / prof["device_busy_ms"]}
     cache = api.init_cache(batch, prompt_len + gen)
     outs = []
     for t in range(prompt_len):
@@ -1337,6 +1391,9 @@ def main(argv=None) -> int:
     decode_regs = decode_ptxas(fkernel)
     print(f"phase 5 decode attention kernel (ptxas registers and spills per instance "
           f"<type, padded hd, rows>): {json.dumps(decode_regs)}")
+    simt_regs = simt_ptxas(fkernel)
+    print(f"phase 5 SIMT attention kernel (ptxas registers and spills per instance "
+          f"<type, padded hd, rows a block>): {json.dumps(simt_regs)}")
     scan_regs = scan_ptxas(skernel)
     print(f"phase 5 scan kernel (ptxas registers and spills per instance <type, G>): "
           f"{json.dumps(scan_regs)}")
@@ -1346,8 +1403,8 @@ def main(argv=None) -> int:
     for kname, cases in lm_kres.items():
         print(f"phase 6 {kname} vs plain: " + json.dumps(
             {c: {k: r[k] for k in ("err_of_scale", "state_err_of_scale", "ms", "device_ms",
-                                   "simt_ms", "simt_device_ms", "n_split", "plain_ms",
-                                   "bound_ms", "library_ms") if k in r}
+                                   "simt_ms", "simt_device_ms", "n_split", "rows", "plain_ms",
+                                   "bound_ms", "library_ms", "library_device_ms") if k in r}
              for c, r in cases.items()}))
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
 
@@ -1359,16 +1416,19 @@ def main(argv=None) -> int:
     # and under flash_attention; the 16-token forward takes the SIMT one.
     n_mini = configs.get_config("minitron-4b").n_layers
     n_falcon = configs.get_config("falcon-mamba-7b").n_layers
-    for phase, arch, counts in (
+    for phase, arch, counts, forward_kernel in (
             (7, "minitron-4b",
              {"step": {"flash_attention": n_mini, "flash_attention_decode": n_mini},
               "forward": {"flash_attention": n_mini},
-              "prefill": {"flash_attention": n_mini, "flash_attention_wgmma": n_mini}}),
+              "prefill": {"flash_attention": n_mini, "flash_attention_wgmma": n_mini}},
+             "flash_fwd_kernel"),
             (8, "falcon-mamba-7b", {name: {"mamba1_scan": n_falcon}
-                                    for name in ("step", "forward", "prefill")})):
+                                    for name in ("step", "forward", "prefill")},
+             "mamba1_scan_kernel")):
         t0 = time.perf_counter()
         serve_res[arch] = r = phase_serve(torch, arch, serve, steps, models, configs.get_config,
-                                          all_kernels, counts, long_cache=phase == 7)
+                                          all_kernels, counts, forward_kernel,
+                                          long_cache=phase == 7)
         print(f"phase {phase} {arch}: " + json.dumps(
             {k: r[k] for k in ("tokens_per_s", "ms_per_decode_step", "prefill_ms",
                                "decode_vs_forward_err_of_scale", "argmax_agreement",
@@ -1377,7 +1437,7 @@ def main(argv=None) -> int:
                                "prefill_peak_gib",
                                "init_s")})
             + f" ({time.perf_counter() - t0:.1f} s)")
-        for window in ("decode_profile", "prefill_profile"):
+        for window in ("forward_profile", "decode_profile", "prefill_profile"):
             print(f"phase {phase} {arch} {window}: " + json.dumps(r[window]))
         if "long_cache" in r:
             print(f"phase {phase} {arch} decode step over {LONG_CACHE} positions: "
@@ -1433,6 +1493,7 @@ def main(argv=None) -> int:
     # replay); "event_ms" times back-to-back wrapper calls, which the host
     # bounds at these few microseconds.
     fwd = fa["forward16_bf16"]
+    fwd_prof = mini["forward_profile"]
     line.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -1440,16 +1501,28 @@ def main(argv=None) -> int:
         "launches_serve": simt_count(mini["serve_launches"]),
         "launches_per_decode_step": simt_count(mini["step_launches"]),
         "max_abs_err": fa_err["simt"],
-        "ms": fwd["device_ms"], "event_ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
-        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
-        "library_ms": fwd["library_ms"], "shape": fwd["shape"],
+        "ms": fwd["device_ms"], "device_ms": fwd["device_ms"], "event_ms": fwd["ms"],
+        "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+        "library_ms": fwd["library_ms"], "library_device_ms": fwd.get("library_device_ms"),
+        "shape": fwd["shape"], "rows": fwd["rows"], "occupancy": fwd["occupancy"],
+        "forward16_profile": {"device_busy_ms": fwd_prof["device_busy_ms"],
+                              "simt_ms": fwd_prof["match_ms"],
+                              "simt_launches": fwd_prof["match_count"],
+                              "simt_share": fwd_prof["kernel_share"]},
         "decode_forced": {"shape": dec["shape"], "ms": dec["simt_device_ms"],
                           "event_ms": dec["simt_ms"], "plain_ms": dec["plain_ms"],
                           "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-                          "library_ms": dec["library_ms"]},
+                          "library_ms": dec["library_ms"],
+                          "library_device_ms": dec.get("library_device_ms")},
         "prefill": {"shape": pre["shape"], "ms": pre["simt_ms"], "bound_ms": pre["bound_ms"]},
-        "prefill_f32": {k: fa["prefill_f32"][k] for k in (
-            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "cases": {c: {k: r.get(k) for k in (
+            "shape", "dtype", "spec", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "library_note", "rows", "err_of_scale")}
+            for c, r in fa.items() if r["route"] == "simt"},
+        "ptxas": simt_regs,
+        "registers": max(r["registers"] for r in simt_regs.values()),
+        "spill_bytes": sum(r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
+                           for r in simt_regs.values()),
     })
     line.append({
         "name": "flash_attention_decode", "route": "cuda",
@@ -1459,7 +1532,8 @@ def main(argv=None) -> int:
         "max_abs_err": fa_err["decode"], "ms": dec["device_ms"], "event_ms": dec["ms"],
         "simt_ms": dec["simt_device_ms"], "simt_event_ms": dec["simt_ms"],
         "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"], "shape": dec["shape"], "n_split": dec["n_split"],
+        "library_ms": dec["library_ms"], "library_device_ms": dec.get("library_device_ms"),
+        "shape": dec["shape"], "n_split": dec["n_split"],
         "cases": {c: {k: fa[c].get(k) for k in (
             "shape", "n_split", "ms", "device_ms", "simt_ms", "simt_device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_note", "err_of_scale")}
@@ -1509,7 +1583,7 @@ def main(argv=None) -> int:
             "sampler": sampler, "main_path": main_res, "training_ms": train_ms,
             "profile": prof,
             "parity": parity, "lm_build_s": lm_build_s, "wgmma_sass": sass,
-            "scan_ptxas": scan_regs, "decode_ptxas": decode_regs,
+            "scan_ptxas": scan_regs, "decode_ptxas": decode_regs, "simt_ptxas": simt_regs,
             "lm_kernels": lm_kres,
             "serve": serve_res, "lm_parity": lm_parity}, indent=1))
     print(json.dumps({"kernels": line}))

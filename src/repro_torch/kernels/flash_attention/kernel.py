@@ -10,7 +10,8 @@ kv head packed into one block, keys split across blocks as ``decode_plan``
 says and merged in the same launch); bf16 prefill with hd 64 or 128 and
 Sq >= 64 takes ``flash_attention_sm90.cu`` (both products on wgmma tensor
 cores); every other call the kernel of ``flash_attention.cu`` (float32
-cores). Each launch adds one to ``launches["flash_attention"]``, and a
+cores; the q heads of a kv head packed into a block's rows, ``simt_rows``
+of them a block). Each launch adds one to ``launches["flash_attention"]``, and a
 launch of the wgmma or decode kernel also to ``launches["flash_attention_wgmma"]``
 or ``launches["flash_attention_decode"]``. The three kernels are in one
 library, built by ``nvcc`` on the first launch (``kernels/_build.py``),
@@ -44,6 +45,10 @@ DECODE_HEAD_DIM_MULTIPLE = 8
 DECODE_ROWS = (1, 2, 4, 8)
 DECODE_MAX_SPLIT_TILES = 128
 DECODE_MIN_SPLIT_TILES = 4
+# The SIMT kernel: flat (position, q head) rows a block (128 only up to hd
+# 128: that instance takes 64-key tiles and 8 rows a thread).
+SIMT_ROWS = (16, 32, 64, 128)
+SIMT_WIDE_MAX_HEAD_DIM = 128
 # ptxas reports each kernel's registers and spills into the build log.
 EXTRA_FLAGS = ("-Xptxas", "-v")
 
@@ -70,8 +75,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C interface of a library built from ``SOURCES``."""
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ip = ctypes.POINTER(i)
-    lib.flash_attention_launch.argtypes = [vp] * 7 + [i] * 7 + [f, i, i, i, f, vp]
+    lib.flash_attention_launch.argtypes = [vp] * 7 + [i] * 8 + [f, i, i, i, f, vp]
     lib.flash_attention_launch.restype = i
+    lib.flash_attention_occupancy.argtypes = [i, i, i, ip, ip, ip]
+    lib.flash_attention_occupancy.restype = i
     lib.flash_attention_wgmma_launch.argtypes = [vp] * 7 + [i] * 6 + [f, i, i, i, f, vp]
     lib.flash_attention_wgmma_launch.restype = i
     lib.flash_attention_wgmma_occupancy.argtypes = [i, i, ip, ip]
@@ -105,6 +112,18 @@ def wgmma_occupancy(hd: int, skv: int) -> dict:
     return {"smem_bytes_per_block": smem.value, "blocks_per_sm": blocks.value}
 
 
+def simt_occupancy(dtype: torch.dtype, hd: int, rows: int) -> dict:
+    """Shared memory, threads and blocks per SM of the SIMT kernel instance
+    that takes (dtype, hd, rows) on the current card."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    err = _library().flash_attention_occupancy(DTYPES[dtype], hd, rows,
+                                               *map(ctypes.byref, out))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_occupancy failed: CUDA error {err}")
+    return {"smem_bytes_per_block": out[0].value, "threads": out[1].value,
+            "blocks_per_sm": out[2].value}
+
+
 def decode_occupancy(dtype: torch.dtype, hd: int, group: int) -> dict:
     """Shared memory, stages and blocks per SM of the decode kernel instance
     that takes (dtype, hd, G) on the current card."""
@@ -133,6 +152,31 @@ def variant(dtype: torch.dtype, hd: int, sq: int) -> str:
     if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS and sq >= WGMMA_MIN_SQ:
         return "wgmma"
     return "simt"
+
+
+def simt_row_sizes(hd: int) -> tuple[int, ...]:
+    """The SIMT kernel's rows a block at head dim ``hd``."""
+    return SIMT_ROWS if hd <= SIMT_WIDE_MAX_HEAD_DIM else SIMT_ROWS[:-1]
+
+
+def simt_rows(b: int, sq: int, hkv: int, group: int, hd: int, sms: int) -> int:
+    """Flat rows a block of the SIMT kernel: the least of ``simt_row_sizes(hd)``
+    that holds a kv head's Sq x G rows (else the largest), halved while the
+    grid (row tiles x Hkv x B blocks) would not give each of ``sms`` SMs a
+    block, but not below 32: 16 rows take as many threads a row as 32, so
+    halving to 16 adds blocks but no threads (32 measured about 8 % faster at
+    the 16-token forward on an H100, PERF.md); 16 take calls of at most 16 rows."""
+    flat = sq * group
+    sizes = simt_row_sizes(hd)
+    rows = next((r for r in sizes if flat <= r), sizes[-1])
+    while rows > 32 and -(-flat // rows) * hkv * b < sms:
+        rows //= 2
+    return rows
+
+
+@functools.lru_cache(maxsize=None)
+def device_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def decode_rows(group: int) -> int:
@@ -216,10 +260,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _flash_attention_cuda(q, k, v, q_pos, kv_pos, spec, kv_valid=None, scale=None,
-                          force_simt=False, n_split: Optional[int] = None) -> torch.Tensor:
+                          force_simt=False, n_split: Optional[int] = None,
+                          rows: Optional[int] = None) -> torch.Tensor:
     """``flash_attention_cuda``, where a given ``n_split`` fixes the decode
-    kernel's split count (``split_plan``; else ``decode_plan`` picks it): the
-    tests reach one split and many at one shape through it."""
+    kernel's split count (``split_plan``; else ``decode_plan`` picks it) and a
+    given ``rows`` the SIMT kernel's rows a block (else ``simt_rows``): the
+    tests reach one split and many, and every row tile, at one shape."""
     for name, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos), ("kv_pos", kv_pos)):
         if not t.is_cuda:
             raise ValueError(f"flash_attention: the CUDA kernel needs CUDA tensors, "
@@ -244,6 +290,9 @@ def _flash_attention_cuda(q, k, v, q_pos, kv_pos, spec, kv_valid=None, scale=Non
     if n_split is not None and route != "decode":
         raise ValueError(f"flash_attention: n_split is for the decode kernel, this call "
                          f"takes the {route} one")
+    if rows is not None and (route != "simt" or rows not in simt_row_sizes(hd)):
+        raise ValueError(f"flash_attention: rows must be one of {simt_row_sizes(hd)} at hd "
+                         f"{hd} and is for the SIMT kernel; this call takes the {route} one")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0 or skv == 0:
         return out.zero_()
@@ -265,7 +314,9 @@ def _flash_attention_cuda(q, k, v, q_pos, kv_pos, spec, kv_valid=None, scale=Non
                 float(spec.softcap))
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "simt":
-            err = lib.flash_attention_launch(*args, DTYPES[q.dtype], *mask, stream)
+            if rows is None:
+                rows = simt_rows(b, sq, hkv, h // hkv, hd, device_sms(q.device))
+            err = lib.flash_attention_launch(*args, DTYPES[q.dtype], rows, *mask, stream)
         elif route == "wgmma":
             err = lib.flash_attention_wgmma_launch(*args, *mask, stream)
         else:
@@ -294,5 +345,5 @@ def _flash_attention_cuda(q, k, v, q_pos, kv_pos, spec, kv_valid=None, scale=Non
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it when its data does not start on 16 bytes (a view
-    at an offset): the wgmma and decode kernels copy rows in 16-byte pieces."""
+    at an offset): the kernels copy rows in 16-byte pieces."""
     return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -6,17 +6,21 @@ paths are held against. It supports GQA, causal / sliding-window / prefix-LM
 masks, tanh soft-capping of the logits and padded-KV validity (decode
 caches). Positions are absolute and read from ``q_pos`` / ``kv_pos``, never
 from indices. ``decode_split_reference`` repeats the decode kernel's
-split-and-merge arithmetic (``csrc/flash_decode_sm90.cu``) for the tests.
+split-and-merge arithmetic (``csrc/flash_decode_sm90.cu``) for the tests, and
+``simt_tile_reference`` the SIMT kernel's packed row tiles
+(``csrc/flash_attention.cu``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 
 NEG = -1e30  # finite mask value: a row with no visible key yet stays finite
 DECODE_TILE = 32  # keys a tile of the decode kernel; its splits are whole tiles
+SIMT_KEY_TILE = 32  # keys a tile of the SIMT kernel (64 at 128 rows a block)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,3 +136,74 @@ def decode_split_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = acc / torch.clamp(l_sum[..., None], min=1e-30)
     out = torch.where((m_max > NEG / 2)[..., None], out, 0.0)
     return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def simt_tile_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_pos: torch.Tensor, kv_pos: torch.Tensor, spec: AttnSpec,
+                        kv_valid: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None, rows: int = 64) -> torch.Tensor:
+    """Attention the way the SIMT kernel (``csrc/flash_attention.cu``) tiles
+    it. The rows of kv head h are its G = H / Hkv q heads at each query
+    position in (position, g) order, flat row f = position G + g; a block
+    takes ``rows`` consecutive flat rows and walks the keys in
+    ``SIMT_KEY_TILE``-key tiles (twice that at 128 rows). A tile is skipped
+    when none of its valid
+    keys passes the mask against the block's least and greatest row position
+    (causal: key <= greatest; window: least - key < window; or the prefix);
+    the others take per-entry masks, masked logits -1e30, and the online
+    softmax in float32 in the log2 domain (logits times scale log2(e), after
+    the soft-cap), exponentiated by exp2. A row that never sees a key is
+    written as 0. Same signature and result as ``attention_ref`` (up to
+    rounding), plus ``rows``."""
+    b, sq, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = hd ** -0.5 if scale is None else scale
+    if kv_valid is None:
+        kv_valid = torch.ones((b, skv), dtype=torch.bool, device=q.device)
+    kv_valid = kv_valid.bool()
+    n_rows = sq * group
+    # (B, Hkv, flat rows, hd); the position of each flat row.
+    qf = q.float().reshape(b, sq, hkv, group, hd).permute(0, 2, 1, 3, 4).reshape(
+        b, hkv, n_rows, hd)
+    kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))  # (B, Hkv, Skv, hd)
+    flat_pos = q_pos.repeat_interleave(group, dim=1)  # (B, flat rows)
+    log2e = math.log2(math.e)
+    tile = SIMT_KEY_TILE * (2 if rows == 128 else 1)
+    out = torch.empty_like(qf)
+    for f0 in range(0, n_rows, rows):
+        qt, qp = qf[:, :, f0:f0 + rows], flat_pos[:, f0:f0 + rows]
+        lo, hi = qp.amin(dim=1, keepdim=True), qp.amax(dim=1, keepdim=True)  # (B, 1)
+        m = torch.full(qt.shape[:3], NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qt)
+        for k0 in range(0, skv, tile):
+            kp, ok = kv_pos[:, k0:k0 + tile], kv_valid[:, k0:k0 + tile]
+            near = torch.ones_like(ok)
+            if spec.causal:
+                near = near & (kp <= hi)
+            if spec.window > 0:
+                near = near & (lo - kp < spec.window)
+            if spec.prefix_len > 0:
+                near = near | (kp < spec.prefix_len)
+            loaded = (ok & near).any(dim=1)  # (B,): the tile is loaded for this batch row
+            if not bool(loaded.any()):
+                continue
+            logits = torch.einsum("bhrd,bhkd->bhrk", qt, kf[:, :, k0:k0 + tile]) * scale
+            if spec.softcap > 0:
+                logits = spec.softcap * torch.tanh(logits / spec.softcap)
+            mask = attention_mask(qp, kp, spec, ok)  # (B, rows, keys)
+            logits = torch.where(mask[:, None], logits * log2e, NEG)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(logits - m_new[..., None])
+            l_new = l * corr + p.sum(dim=-1)
+            acc_new = acc * corr[..., None] + torch.einsum(
+                "bhrk,bhkd->bhrd", p, vf[:, :, k0:k0 + tile])
+            keep = loaded[:, None, None]
+            m, l = torch.where(keep, m_new, m), torch.where(keep, l_new, l)
+            acc = torch.where(keep[..., None], acc_new, acc)
+        res = acc / torch.clamp(l[..., None], min=1e-30)
+        out[:, :, f0:f0 + rows] = torch.where((m > NEG / 2)[..., None], res, 0.0)
+    return out.reshape(b, hkv, sq, group, hd).permute(0, 2, 1, 3, 4).reshape(
+        b, sq, h, hd).to(q.dtype)

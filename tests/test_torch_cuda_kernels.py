@@ -313,6 +313,111 @@ def test_flash_decode_forced_simt_matches_decode_kernel(card):
                                       force_simt=True, n_split=2)
 
 
+# The SIMT kernel (flash_attention.cu): (B, Sq, Skv, Hkv, G, hd, dtype, spec,
+# inputs). bf16 prompts under 64 tokens at hd 64 / 128 (Sq 2, 15, 16, 17,
+# 63; minitron-4b's 16-token forward first); float32 at Sq 16, 65 and 300;
+# hd 32, 36, 80, 128 and 256 (bf16 hd 36: 72-byte rows, the element path;
+# float32 hd 17); G 1, 3, 4 and 8; causal, window, prefix-LM, soft-cap and
+# non-causal masks with and without kv_valid; a chunk at positions
+# 100 .. 100 + Sq - 1 over keys 0 .. Skv - 1.
+BF16, F32 = torch.bfloat16, torch.float32
+SIMT_CASES = [
+    (4, 16, 16, 8, 4, 128, BF16, AttnSpec(), "prefill"),
+    (2, 2, 40, 2, 3, 64, BF16, AttnSpec(window=8), "prefill"),
+    (2, 15, 15, 2, 8, 128, BF16, AttnSpec(softcap=30.0), "prefill"),
+    (2, 17, 128, 2, 4, 64, BF16, AttnSpec(), "chunk"),
+    (1, 63, 63, 4, 1, 128, BF16, AttnSpec(prefix_len=20), "prefill"),
+    (3, 16, 48, 2, 4, 128, BF16, AttnSpec(), "ring"),
+    (2, 17, 100, 1, 8, 64, BF16, AttnSpec(causal=False), "masked"),
+    (2, 16, 16, 2, 4, 32, F32, AttnSpec(), "prefill"),
+    (2, 65, 65, 2, 3, 36, F32, AttnSpec(window=16), "prefill"),
+    (1, 300, 300, 2, 4, 80, F32, AttnSpec(softcap=50.0), "prefill"),
+    (2, 65, 200, 1, 8, 128, F32, AttnSpec(prefix_len=50), "ring"),
+    (2, 300, 300, 1, 1, 256, F32, AttnSpec(), "masked"),
+    (1, 16, 128, 2, 4, 256, F32, AttnSpec(window=64), "chunk"),
+    (2, 65, 70, 2, 3, 17, F32, AttnSpec(), "prefill"),
+    (2, 300, 300, 4, 1, 80, BF16, AttnSpec(), "prefill"),
+    (1, 200, 200, 1, 8, 256, BF16, AttnSpec(prefix_len=64), "prefill"),
+    (2, 17, 60, 2, 3, 36, BF16, AttnSpec(), "ring"),
+]
+
+
+def _simt_inputs(card, case, seed):
+    """q, k, v from a numpy seed and positions of the case's kind:
+    "prefill" (the indices, queries last), "chunk" (queries at 100 ..),
+    "ring" (permuted key positions, a fifth of the slots empty at -1; the
+    last batch row's queries lie before every key) or "masked" (the last
+    batch row has no valid key, the first some invalid ones)."""
+    b, sq, skv, hkv, group, hd, dtype, _, kind = case
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32), device=card).to(dtype)
+               for s in ((b, sq, hkv * group, hd), (b, skv, hkv, hd), (b, skv, hkv, hd)))
+    kp = np.broadcast_to(np.arange(skv), (b, skv))
+    qp = np.broadcast_to(np.arange(100 if kind == "chunk" else skv - sq,
+                                   (100 if kind == "chunk" else skv - sq) + sq), (b, sq))
+    valid = None
+    if kind == "ring":
+        kp = np.stack([rng.permutation(np.arange(100, 100 + skv)) for _ in range(b)])
+        kp[rng.random(kp.shape) < 0.2] = -1
+        qp = np.broadcast_to(np.arange(100 + skv - sq + 1, 100 + skv + 1), (b, sq)).copy()
+        qp[-1] = 50 - np.arange(sq)
+        valid = torch.as_tensor(kp >= 0, device=card)
+    elif kind == "masked":
+        valid = torch.ones((b, skv), dtype=torch.bool, device=card)
+        valid[-1] = False
+        valid[0, 3:9] = False
+    kp, qp = (torch.as_tensor(np.ascontiguousarray(a).astype(np.int32), device=card)
+              for a in (kp, qp))
+    return q, k, v, qp, kp, valid
+
+
+@pytest.mark.parametrize("rows", [None, 16, 32, 64, 128])
+@pytest.mark.parametrize("case", SIMT_CASES, ids=str)
+def test_flash_simt_matches_plain_version(card, case, rows):
+    """Calls that variant sends to flash_attention.cu, at the row tile the
+    wrapper picks and at each of 16, 32, 64 and 128 rows a block (128 is
+    refused above hd 128): one SIMT launch a call, within 2e-5 (float32) or
+    8e-3 (bf16) of scale of the plain version and of the kernel's tiling
+    plain version, rows that see no key exactly 0, the same bits on a
+    second call."""
+    b, sq, skv, hkv, group, hd, dtype, spec, kind = case
+    q, k, v, qp, kp, valid = _simt_inputs(card, case, 23)
+    assert fkernel.variant(dtype, hd, sq) == "simt"
+    if rows == 128 and hd > 128:
+        with pytest.raises(ValueError, match="rows"):
+            fkernel._flash_attention_cuda(q, k, v, qp, kp, spec, kv_valid=valid, rows=rows)
+        return
+    before = dict(fkernel.launches)
+    got = fkernel._flash_attention_cuda(q, k, v, qp, kp, spec, kv_valid=valid, rows=rows)
+    assert fkernel.launches == {**before, "flash_attention": before["flash_attention"] + 1}
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    tol = 2e-5 if dtype == torch.float32 else BF16_TOL_OF_SCALE
+    tiled = fref.simt_tile_reference(q, k, v, qp, kp, spec, valid, rows=rows or 64)
+    for want in (fops.attention_chunked(q, k, v, qp, kp, spec, kv_valid=valid), tiled):
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol * float(want.float().abs().max())
+    unseen = ~fref.attention_mask(qp, kp, spec, valid).any(dim=-1)
+    assert bool((got[unseen] == 0).all()) and bool((got[~unseen] != 0).any())
+    if kind in ("ring", "masked"):
+        assert bool(unseen.any())
+    again = fkernel._flash_attention_cuda(q, k, v, qp, kp, spec, kv_valid=valid, rows=rows)
+    assert torch.equal(again, got)
+
+
+def test_flash_simt_rows_refused_elsewhere(card):
+    """rows is for the SIMT kernel: refused for the decode and wgmma routes
+    and for a size the kernel has no instance of."""
+    case = SIMT_CASES[0]
+    q, k, v, qp, kp, valid = _simt_inputs(card, case, 1)
+    with pytest.raises(ValueError, match="rows"):
+        fkernel._flash_attention_cuda(q, k, v, qp, kp, AttnSpec(), rows=48)
+    with pytest.raises(ValueError, match="rows"):
+        fkernel._flash_attention_cuda(q[:, :1], k, v, qp[:, :1], kp, AttnSpec(), rows=16)
+    occ = fkernel.simt_occupancy(torch.float32, 128, 64)
+    assert occ["threads"] == 128 and occ["blocks_per_sm"] >= 1
+    assert fkernel.simt_occupancy(torch.bfloat16, 128, 128)["threads"] == 256
+
+
 @pytest.mark.parametrize("shape", [(1, 64, 32, 8), (2, 128, 64, 16), (1, 96, 300, 4),
                                    (2, 1, 32, 16), (1, 40, 64, 24)], ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)

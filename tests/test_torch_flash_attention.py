@@ -30,10 +30,12 @@ from repro_torch.kernels.flash_attention import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as tops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (AttnSpec, attention_mask,  # noqa: E402
                                                      attention_ref, decode_split_bounds,
-                                                     decode_split_reference)
+                                                     decode_split_reference,
+                                                     simt_tile_reference)
 
-# (B, Sq, Skv, H, Hkv, hd, spec): tests/test_kernels.py's cases, then GQA 4:1
-# and a head dim of 80.
+# (B, Sq, Skv, H, Hkv, hd, spec): tests/test_kernels.py's cases, then GQA 4:1,
+# a head dim of 80, a short query at offset positions (16 rows at 112 .. 127
+# over 128 keys) and hd 256 with G = 8 and a prefix.
 ATTN_CASES = [
     (2, 128, 128, 4, 2, 64, AttnSpec(causal=True)),
     (1, 256, 256, 8, 8, 32, AttnSpec(causal=True, window=64)),
@@ -42,6 +44,8 @@ ATTN_CASES = [
     (1, 128, 128, 2, 2, 16, AttnSpec(causal=True, prefix_len=32)),
     (1, 128, 128, 8, 2, 32, AttnSpec(causal=True)),
     (1, 64, 64, 2, 1, 80, AttnSpec(causal=True)),
+    (2, 16, 128, 8, 2, 64, AttnSpec(causal=True)),
+    (1, 64, 64, 8, 1, 256, AttnSpec(causal=True, prefix_len=16)),
 ]
 DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
           "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
@@ -400,3 +404,126 @@ def test_decode_plan():
     assert tkernel.decode_rows(20) == 8 and tkernel.decode_rows(3) == 4
     with pytest.raises(ValueError, match="4096 keys"):
         tkernel.split_plan(32768, 1)
+
+
+def _simt_inputs(case, seed):
+    """Inputs of a SIMT tiling case: "prefill" (positions are the indices,
+    the queries last), "chunk" (16 queries at positions 100 .. 115 over keys
+    at 0 .. Skv - 1, as a chunked prefill after a cache), "ring" (permuted
+    key positions, a fifth of the slots empty at -1 and invalid; the last
+    batch row's queries lie before every key: they see none) or "masked"
+    (the last batch row has no valid key, the first some invalid ones)."""
+    b, sq, skv, hkv, group, hd, _, kind = case
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, sq, hkv * group, hd)).astype(np.float32)
+    k = rng.normal(size=(b, skv, hkv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, skv, hkv, hd)).astype(np.float32)
+    kp = np.broadcast_to(np.arange(skv, dtype=np.int32), (b, skv)).copy()
+    qp = np.broadcast_to(np.arange(skv - sq, skv, dtype=np.int32), (b, sq)).copy()
+    valid = np.ones((b, skv), bool)
+    if kind == "chunk":
+        qp = np.broadcast_to(np.arange(100, 100 + sq, dtype=np.int32), (b, sq)).copy()
+    elif kind == "ring":
+        kp = np.stack([rng.permutation(np.arange(100, 100 + skv)) for _ in range(b)])
+        kp = kp.astype(np.int32)
+        kp[rng.random(kp.shape) < 0.2] = -1
+        qp = np.broadcast_to(np.arange(100 + skv - sq + 1, 100 + skv + 1, dtype=np.int32),
+                             (b, sq)).copy()
+        qp[-1] = 50 - np.arange(sq)
+        valid = kp >= 0
+    elif kind == "masked":
+        valid[-1] = False
+        valid[0, 3:9] = False
+    return q, k, v, qp, kp, valid
+
+
+# (B, Sq, Skv, Hkv, G, hd, spec, inputs): Sq 1, 3, 16, 17 and 63; G 1, 3, 4
+# and 8; hd 36, 80, 128 and 256; causal, window, prefix-LM, soft-cap and
+# non-causal masks; rows that see no key; a chunk at positions 100 .. 115.
+SIMT_CASES = [
+    (2, 1, 100, 2, 4, 36, AttnSpec(), "ring"),
+    (1, 3, 40, 2, 3, 80, AttnSpec(window=8), "prefill"),
+    (2, 16, 16, 2, 4, 128, AttnSpec(), "prefill"),
+    (2, 17, 50, 1, 8, 36, AttnSpec(softcap=20.0), "prefill"),
+    (1, 63, 63, 2, 3, 80, AttnSpec(prefix_len=20), "prefill"),
+    (2, 16, 128, 2, 4, 80, AttnSpec(), "chunk"),
+    (1, 17, 70, 1, 8, 256, AttnSpec(prefix_len=10, window=5), "prefill"),
+    (2, 16, 48, 2, 1, 256, AttnSpec(window=4), "masked"),
+    (2, 3, 64, 1, 8, 36, AttnSpec(window=40), "ring"),
+    (1, 63, 100, 2, 1, 80, AttnSpec(causal=False, window=30), "prefill"),
+]
+
+
+@pytest.mark.parametrize("case", SIMT_CASES, ids=str)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_simt_tile_reference_matches_jax(case, dtype):
+    """The SIMT kernel's plain version (flat (position, q head) row tiles of
+    16, 32, 64 and 128 rows, 32- or 64-key tiles, tile skip on the block's least and
+    greatest position) against JAX's attention_ref and its Pallas kernel in
+    interpret mode: 2e-5 in float32, 2e-2 in bfloat16; rows that see no key
+    exactly 0."""
+    tdt, jdt, tol = DTYPES[dtype]
+    spec = case[6]
+    (q, k, v, qp, kp, valid), jargs = _both(_simt_inputs(case, 41), tdt, jdt)
+    want = j_attention_ref(*jargs[:5], _jspec(spec), kv_valid=jargs[5])
+    pallas = flash_attention_pallas(*jargs[:5], _jspec(spec), kv_valid=jargs[5],
+                                    interpret=True, block_q=64, block_kv=64)
+    unseen = ~attention_mask(qp, kp, spec, valid).any(dim=-1)  # (B, Sq)
+    if case[-1] in ("ring", "masked"):
+        assert bool(unseen.any())
+    for rows in tkernel.SIMT_ROWS:
+        got = simt_tile_reference(q, k, v, qp, kp, spec, valid, rows=rows)
+        assert got.dtype == tdt and got.shape == q.shape
+        _close(got, want, tol)
+        _close(got, pallas, tol)
+        assert torch.equal(got[unseen], torch.zeros_like(got[unseen]))
+        assert bool(got[~unseen].abs().sum(dim=-1).gt(0).all())
+
+
+def test_simt_tile_skip_changes_nothing():
+    """A tile skipped for the block's rows changes no result: over a window,
+    a chunk with keys only before the window gives the same float32 result
+    as the exact reference (rows see 8 of 512 keys; 15 of 16 tiles skipped)."""
+    b, sq, skv, hkv, group, hd = 1, 4, 512, 1, 4, 32
+    q, k, v, qp, kp, valid = (torch.as_tensor(a) for a in _simt_inputs(
+        (b, sq, skv, hkv, group, hd, None, "prefill"), 3))
+    spec = AttnSpec(window=8)
+    got = simt_tile_reference(q, k, v, qp, kp, spec, valid, rows=16)
+    torch.testing.assert_close(got, attention_ref(q, k, v, qp, kp, spec, valid),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_simt_rows():
+    """The SIMT kernel's rows a block, for a card of 132 SMs: minitron-4b's
+    16-token forward (Sq G = 64 rows a kv head, 32 (batch row, kv head)
+    pairs) halves 64 -> 32 to run 64 blocks, and no further (16 rows would
+    add blocks, not threads); its 2048-token prefill takes 128 (64 at hd
+    256, which has no 128-row instance), or 64 when 128 would leave SMs
+    idle; one query row (Sq = 1, G = 4) takes 16; 17 rows take 32."""
+    assert tkernel.simt_rows(4, 16, 8, 4, 128, 132) == 32
+    assert tkernel.simt_rows(4, 2048, 8, 4, 128, 132) == 128
+    assert tkernel.simt_rows(4, 2048, 1, 8, 256, 132) == 64
+    assert tkernel.simt_rows(4, 2048, 32, 1, 80, 132) == 128
+    assert tkernel.simt_rows(2, 256, 8, 4, 128, 132) == 64  # 128 blocks of 128: too few
+    assert tkernel.simt_rows(4, 1, 8, 4, 36, 132) == 16
+    assert tkernel.simt_rows(64, 17, 8, 1, 128, 132) == 32
+    assert tkernel.simt_rows(1, 17, 1, 1, 128, 132) == 32
+    assert tkernel.simt_rows(8, 3, 16, 8, 64, 132) == 32
+    assert tkernel.simt_rows(1, 4, 1, 4, 64, 132) == 16
+    assert tkernel.simt_row_sizes(256) == (16, 32, 64)
+    assert all(tkernel.simt_rows(b, sq, 8, 4, hd, 132) in tkernel.simt_row_sizes(hd)
+               for b in (1, 4, 64) for sq in (1, 7, 16, 100, 4096) for hd in (64, 256))
+
+
+def test_simt_kernel_source():
+    """The SIMT kernel: k / v staged by 16-byte cp.async, exponentials as
+    ex2.approx, the shared-memory attribute raised once per instance and
+    device (not on every launch), one entry taking the rows a block, and an
+    occupancy report; its wrapper binds both."""
+    text = tkernel.SOURCES[0].read_text()
+    assert tkernel.SOURCES[0].name == "flash_attention.cu"
+    assert "cp.async.cg.shared.global" in text and "ex2.approx.ftz.f32" in text
+    assert "ready.fetch_or" in text and text.count("cudaFuncSetAttribute(") == 1
+    assert "int flash_attention_launch(" in text and "int rows" in text
+    assert "int flash_attention_occupancy(" in text
+    assert "float4" in text and "__ballot_sync" in text
