@@ -63,7 +63,18 @@ Phases, each fatal on failure:
      positions against the same step with the plain attention;
   8. the same for falcon-mamba-7b;
   9. run reduced minitron-4b and falcon-mamba-7b in float32 on the card
-     (kernels) and on the CPU (plain versions) and compare the logits.
+     (kernels) and on the CPU (plain versions) and compare the logits;
+ 10. drive the fleet path (``FleetEngine.from_configs`` / ``from_jobs`` ->
+     ``run``) at 1024 x 32 with per-slice rates, costs and budgets: DS and
+     L-DS fleets of K = 1 and K = 8 slices over 12 slots (ms per fleet slot
+     and per slice-slot, device busy and launches per fleet slot, peak
+     memory, matcher launches per run equal to 12 x one per policy group
+     at both K), each K = 8 slice against its own single-slice run (rtol
+     1e-6, first-slot decisions equal), one K = 8 L-DS slot on the card
+     against the CPU, a ragged fleet (1024 x 32, 768 x 24, 512 x 16,
+     1024 x 16 padded to 1024 x 32) and a mixed-policy fleet (ds, l-ds,
+     no-sdc, no-slt, no-lsa, greedy, ecself, cufull under SWITCHED) over 4
+     slots against their slices' own runs.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without that last
@@ -74,6 +85,7 @@ every measurement to PATH.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import re
@@ -1297,6 +1309,202 @@ def phase_lm_parity(torch, models, configs, kernels):
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 10: fleets
+# --------------------------------------------------------------------------
+
+FLEET_K = 8
+FLEET_SLOTS = 12  # homogeneous fleets; the ragged and mixed-policy ones run 4
+# Matcher launches per fleet slot: one per policy group, whatever K is.
+FLEET_LAUNCHES = {"ds": {"greedy_collection": 1, "greedy_assignment": 0, "greedy_pairing": 1},
+                  "l-ds": {"greedy_collection": 1, "greedy_assignment": 1, "greedy_pairing": 2}}
+MIXED_SPECS = ("ds", "l-ds", "no-sdc", "no-slt", "no-lsa", "greedy", "ecself", "cufull")
+RAGGED_SHAPES = ((1024, 32), (768, 24), (512, 16), (1024, 16))
+
+
+def fleet_config(core, s: int, n_cu: int, n_ec: int):
+    """Slice s of a fleet: the Sec. IV-C setup (``sim_config``) with zeta,
+    eps, f_base and c_base varied by slice as benchmarks/fleet_scale.py's
+    ``_heterogeneous_configs`` varies them, seed = slice index."""
+    return dataclasses.replace(
+        sim_config(core, n_cu, n_ec), seed=s, zeta=400.0 + 50.0 * (s % 5),
+        eps=0.1 + 0.02 * (s % 3), c_base=50.0 + 25.0 * (s % 4),
+        f_base=tuple(8000.0 + 4000.0 * ((s + j) % 4) for j in range(n_ec)))
+
+
+def same_run(torch, what: str, recs, ref_recs, state, ref_state) -> float:
+    """Fails unless a fleet slice's (T,) records and final state equal a
+    single-slice run's within rtol 1e-6 (states: plus 1e-6 of each
+    tensor's scale); returns the largest relative difference."""
+    worst = 0.0
+    for f in ref_recs._fields:
+        a, b = getattr(recs, f).double().cpu(), getattr(ref_recs, f).double().cpu()
+        err = float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+        if not torch.allclose(a, b, rtol=1e-6, atol=0.0):
+            fail(f"{what}: record {f} differs from the single-slice run ({err:.3e})")
+        worst = max(worst, err)
+    pairs = [(f"{g}.{f}", getattr(getattr(state, g), f), getattr(getattr(ref_state, g), f))
+             for g in ("queues", "mults", "emp_mults") for f in getattr(ref_state, g)._fields]
+    pairs += [(f, getattr(state, f), getattr(ref_state, f))
+              for f in ("total_cost", "total_trained", "uploaded")]
+    for name, a, b in pairs:
+        a, b = a.double().cpu(), b.double().cpu()
+        scale = float(b.abs().max())
+        if not torch.allclose(a, b, rtol=1e-6, atol=1e-6 * scale):
+            fail(f"{what}: {name} differs from the single-slice run")
+        worst = max(worst, float((a - b).abs().max()) / (scale or 1.0))
+    return worst
+
+
+def phase_fleet(torch, core, kernel, bridge, metrics):
+    """The fleet path at the Sec. IV-C setup (1024 x 32, pair_iters 120):
+    homogeneous DS and L-DS fleets at K = 1 and K = 8 (host ms per fleet
+    slot and per slice-slot, profiled device busy and launches per fleet
+    slot, peak memory, matcher launches per run: T x the per-slot count at
+    both K); each slice of the K = 8 fleets against its own single-slice
+    card run, one K = 8 L-DS slot against the CPU; a ragged fleet and a
+    mixed-policy fleet against their slices' own runs."""
+    from repro_torch.core.fleet import slice_records
+    out = {"homogeneous": {}}
+    cfgs = [fleet_config(core, s, *MAIN_SHAPE) for s in range(FLEET_K)]
+    fleets = {}
+    for spec in (core.DS, core.LDS):
+        per_run = {op: FLEET_SLOTS * c for op, c in FLEET_LAUNCHES[spec.name].items()}
+        for k in (1, FLEET_K):
+            eng = core.FleetEngine.from_configs(cfgs[:k], spec)
+            state0 = eng.init()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(kernel)
+            t0 = time.perf_counter()
+            state, recs = eng.run(FLEET_SLOTS, state0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = expect_counts((kernel,), f"fleet {spec.name} K={k}", per_run)
+            peak = torch.cuda.max_memory_allocated()
+            for f in recs._fields:
+                v = getattr(recs, f)
+                if v.shape != (FLEET_SLOTS, k) or not bool(torch.isfinite(v).all()):
+                    fail(f"fleet {spec.name} K={k}: record {f} not finite of shape "
+                         f"({FLEET_SLOTS}, {k})")
+            prof = profile_window(torch, lambda: eng.step(state))
+            s0 = metrics.summary(cfgs[0], eng.slice_state(state, 0))
+            out["homogeneous"][f"{spec.name}_k{k}"] = {
+                "slots": FLEET_SLOTS, "slices": k,
+                "ms_per_fleet_slot": wall / FLEET_SLOTS * 1e3,
+                "ms_per_slice_slot": wall / (FLEET_SLOTS * k) * 1e3,
+                "device_busy_ms_per_fleet_slot": prof["device_busy_ms"],
+                "device_launches_per_fleet_slot": prof["device_launches"],
+                "profiled_slot_wall_ms": prof["wall_ms"], "busy_share": prof["busy_share"],
+                "peak_memory_gib": peak / 2 ** 30, "launches": launches,
+                "slice0": {key: s0[key] for key in ("unit_cost", "skew_degree", "total_trained")},
+            }
+            fleets[(spec.name, k)] = (eng, state0, state, recs)
+
+    # Slice k of each K = 8 fleet against the single-slice run of slice k.
+    out["parity"] = {}
+    t0 = time.perf_counter()
+    for spec in (core.DS, core.LDS):
+        eng, state0, state, recs = fleets[(spec.name, FLEET_K)]
+        _, _, dec = eng.step(state0)
+        worst = 0.0
+        for k, cfg in enumerate(cfgs):
+            _, _, ref_dec = core.step(cfg, spec, core.init_state(cfg))
+            for f in ("alpha", "theta", "z"):
+                if not torch.equal(getattr(dec, f)[k], getattr(ref_dec, f)):
+                    fail(f"fleet {spec.name} slice {k}: first-slot decision {f} differs "
+                         "from the single-slice step")
+            ref_state, ref_recs = core.run(cfg, spec, FLEET_SLOTS)
+            worst = max(worst, same_run(torch, f"fleet {spec.name} slice {k}",
+                                        slice_records(recs, k), ref_recs,
+                                        eng.slice_state(state, k), ref_state))
+        out["parity"][spec.name] = {"slices": FLEET_K, "slots": FLEET_SLOTS,
+                                    "first_slot_decisions_equal": True,
+                                    "max_rel_err": worst, "seconds": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+
+    # One teacher-forced K = 8 L-DS slot: the card (kernels) against the CPU.
+    eng, _, state, _ = fleets[("l-ds", FLEET_K)]
+    net = core.slot_network(eng.shape, state, eng.params)
+    new_c, rec_c, dec_c = eng.step(state, net)
+    eng_cpu = core.FleetEngine.from_configs(cfgs, core.LDS, device="cpu")
+    new_p, rec_p, dec_p = eng_cpu.step(bridge.from_numpy(bridge.to_numpy(state), "cpu"),
+                                       bridge.from_numpy(bridge.to_numpy(net), "cpu"))
+    for f in ("alpha", "theta", "z"):
+        if not torch.equal(getattr(dec_c, f).cpu(), getattr(dec_p, f)):
+            fail(f"fleet slot: decision {f} differs between CUDA and CPU")
+    pairs = [(f"dec.{f}", getattr(dec_c, f), getattr(dec_p, f)) for f in ("x", "y")]
+    pairs += [(f"rec.{f}", getattr(rec_c, f), getattr(rec_p, f)) for f in rec_c._fields]
+    pairs += [(f"{g}.{f}", getattr(getattr(new_c, g), f), getattr(getattr(new_p, g), f))
+              for g in ("queues", "mults", "emp_mults") for f in getattr(new_c, g)._fields]
+    worst = 0.0
+    for name, a, b in pairs:
+        for k in range(FLEET_K):
+            scale = float(b[k].abs().max()) or 1.0
+            err = float((a[k].double().cpu() - b[k].double()).abs().max()) / scale
+            if err > 1e-5:  # phase 4's tolerance
+                fail(f"fleet slot: {name} of slice {k} differs by {err:.3e} of its scale")
+            worst = max(worst, err)
+    out["card_vs_cpu_slot"] = {"slices": FLEET_K, "decisions_equal": True,
+                               "max_rel_err": worst, "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+
+    # A ragged fleet: four true shapes padded to 1024 x 32, DS.
+    jobs = [core.SliceJob(fleet_config(core, s, n, m), core.DS)
+            for s, (n, m) in enumerate(RAGGED_SHAPES)]
+    eng = core.FleetEngine.from_jobs(jobs)
+    reset_counts(kernel)
+    state, recs = eng.run(4)
+    launches = expect_counts((kernel,), "ragged fleet",
+                             {op: 4 * c for op, c in FLEET_LAUNCHES["ds"].items()})
+    worst = 0.0
+    for k, job in enumerate(jobs):
+        ref_state, ref_recs = core.run(job.config, job.spec, 4)
+        worst = max(worst, same_run(torch, f"ragged slice {job.config.n_cu}x{job.config.n_ec}",
+                                    slice_records(recs, k), ref_recs,
+                                    eng.slice_state(state, k), ref_state))
+    out["ragged"] = {"shapes": [list(sh) for sh in RAGGED_SHAPES], "padded_to": list(MAIN_SHAPE),
+                     "slots": 4, "launches": launches, "max_rel_err": worst,
+                     "seconds": time.perf_counter() - t0}
+
+    # A mixed-policy fleet: one slice of each spec but ecfull, SWITCHED.
+    jobs = [core.SliceJob(fleet_config(core, s, *MAIN_SHAPE), core.ALL_SPECS[name])
+            for s, name in enumerate(MIXED_SPECS)]
+    eng = core.FleetEngine.from_jobs(jobs)
+    if eng.spec != core.SWITCHED:
+        fail(f"mixed fleet runs {eng.spec.name}, expected switched")
+    # One launch per policy group a slot: collection groups skew (six
+    # slices: greedy_collection), plain (no-sdc: greedy_assignment) and
+    # cufull (none); training groups skew (six) and linear (no-slt), each
+    # greedy_pairing, and solo (ecself, none); the L-DS slice's virtual
+    # update (greedy_assignment and greedy_pairing).
+    groups = {"collect skew": {"greedy_collection": 1}, "collect plain": {"greedy_assignment": 1},
+              "collect cufull": {}, "train skew": {"greedy_pairing": 1},
+              "train linear": {"greedy_pairing": 1}, "train solo": {},
+              "virtual l-ds": {"greedy_assignment": 1, "greedy_pairing": 1}}
+    per_slot = {}
+    for g in groups.values():
+        for op, c in g.items():
+            per_slot[op] = per_slot.get(op, 0) + c
+    reset_counts(kernel)
+    t1 = time.perf_counter()
+    state, recs = eng.run(4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = expect_counts((kernel,), "mixed fleet", {op: 4 * c for op, c in per_slot.items()})
+    worst = 0.0
+    for k, job in enumerate(jobs):
+        ref_state, ref_recs = core.run(job.config, job.spec, 4)
+        worst = max(worst, same_run(torch, f"mixed slice {job.spec.name}",
+                                    slice_records(recs, k), ref_recs,
+                                    eng.slice_state(state, k), ref_state))
+    out["mixed_policy"] = {"specs": list(MIXED_SPECS), "slots": 4,
+                           "ms_per_fleet_slot": wall / 4 * 1e3,
+                           "launches_per_slot_by_group": groups, "launches": launches,
+                           "max_rel_err": worst, "seconds": time.perf_counter() - t1}
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", type=Path, default=None,
@@ -1448,6 +1656,19 @@ def main(argv=None) -> int:
     print(f"phase 9 reduced models, card vs CPU: {json.dumps(lm_parity)} "
           f"({time.perf_counter() - t0:.1f} s)")
 
+    t0 = time.perf_counter()
+    fleet = phase_fleet(torch, core, kernel, bridge, metrics)
+    for name, r in fleet["homogeneous"].items():
+        print(f"phase 10 fleet {name} {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}: "
+              f"{r['ms_per_fleet_slot']:.1f} ms per fleet slot, "
+              f"{r['ms_per_slice_slot']:.2f} ms per slice-slot, device busy "
+              f"{r['device_busy_ms_per_fleet_slot']:.2f} ms and "
+              f"{r['device_launches_per_fleet_slot']} launches per fleet slot, peak "
+              f"{r['peak_memory_gib']:.3f} GiB, matcher launches per run {r['launches']}")
+    for key in ("parity", "card_vs_cpu_slot", "ragged", "mixed_policy"):
+        print(f"phase 10 fleet {key}: {json.dumps(fleet[key])}")
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -1464,6 +1685,8 @@ def main(argv=None) -> int:
             "replaces": sources[op],
             "launches": main_res["l-ds"]["launches"][f"greedy_{op}"],
             "launches_ds": main_res["ds"]["launches"][f"greedy_{op}"],
+            "launches_fleet": {name: r["launches"][f"greedy_{op}"]
+                               for name, r in fleet["homogeneous"].items()},
             "max_abs_err": r["max_abs_err"], "ms": tm["device_ms"], "device_ms": tm["device_ms"],
             "event_ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": None, "shape": tm["shape"],
@@ -1585,7 +1808,7 @@ def main(argv=None) -> int:
             "parity": parity, "lm_build_s": lm_build_s, "wgmma_sass": sass,
             "scan_ptxas": scan_regs, "decode_ptxas": decode_regs, "simt_ptxas": simt_regs,
             "lm_kernels": lm_kres,
-            "serve": serve_res, "lm_parity": lm_parity}, indent=1))
+            "serve": serve_res, "lm_parity": lm_parity, "fleet": fleet}, indent=1))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,11 +9,16 @@ type is recognised by its set of fields. Two fields differ from the JAX
   * ``het`` replaces ``het_key``: a dict of the four heterogeneity arrays
     (``link_het``, ``ec_het``, ``phase_d``, ``phase_D``), for example
     computed on the JAX side with ``repro.core.network.heterogeneity``;
-  * ``rng`` may be an int seed or an integer array (such as a JAX key),
-    whose 32-bit words, most significant first, make the port's run seed
-    (an int64 0-d tensor, cut to 63 bits).
+  * ``rng`` may be an int seed, a uint32 array of JAX key words (the last
+    axis holds a key's 32-bit words, most significant first, which make the
+    port's run seed, cut to 63 bits) or an array of seeds of another
+    integer type (as ``to_numpy`` returns them).
 
-``to_numpy`` is the inverse (the seed comes back as an int64 0-d array).
+Stacked containers (a fleet's, with a leading K axis on every leaf)
+convert the same way: a (K, 2) array of JAX keys gives K run seeds, and
+``het`` takes K stacked sets of the four heterogeneity arrays.
+
+``to_numpy`` is the inverse (seeds come back as an int64 array).
 
 ``lm_params_from_numpy`` builds a port language model from the JAX
 package's parameter tree (``model.init(key)`` as numpy).
@@ -42,14 +47,23 @@ def _match_type(keys: set[str]):
     raise KeyError(f"no port container has the fields {sorted(keys)}")
 
 
-def _seed_of(rng: Any) -> int:
+def _seeds_of(rng: Any) -> int | list[int]:
+    """The run seed of one slice (an int), or one per slice (a list)."""
     if isinstance(rng, (int, np.integer)):
         return int(rng)
-    words = np.asarray(rng).astype(np.uint64).ravel()
-    seed = 0
-    for w in words:
-        seed = ((seed << 32) ^ int(w)) & 0x7FFF_FFFF_FFFF_FFFF
-    return seed
+    rng = np.asarray(rng)
+    if rng.dtype != np.uint32:
+        return rng.astype(np.int64).tolist()
+
+    def fold(words) -> int:
+        seed = 0
+        for w in words:
+            seed = ((seed << 32) ^ int(w)) & 0x7FFF_FFFF_FFFF_FFFF
+        return seed
+
+    if rng.ndim <= 1:
+        return fold(rng.ravel())
+    return [fold(key) for key in rng.reshape(-1, rng.shape[-1])]
 
 
 def _tensor(name: str, value: Any, device: torch.device) -> torch.Tensor:
@@ -66,7 +80,7 @@ def from_numpy(tree: Mapping[str, Any], device: str | torch.device):
         if value is None:
             kw[name] = None
         elif name == "rng":
-            kw[name] = seed_tensor(_seed_of(value), device)
+            kw[name] = seed_tensor(_seeds_of(value), device)
         elif isinstance(value, Mapping):
             kw[name] = from_numpy(value, device)
         else:

@@ -37,7 +37,7 @@ from typing import Optional, Sequence
 import torch
 
 from .types import (CocktailConfig, DeviceLike, Heterogeneity, NetworkState,
-                    ShapeConfig, SliceParams, entity_masks, het_seed,
+                    ShapeConfig, SliceParams, entity_masks, het_seed, per_slice,
                     resolve_device, seed_tensor, split_config)
 
 _TWO_PI = 2.0 * math.pi
@@ -101,25 +101,33 @@ def _counters(draws: tuple[Draw, ...], device: torch.device):
 
 
 def uniform_bits(seed, t, draws: Sequence[Draw], device: DeviceLike = None) -> torch.Tensor:
-    """The 32-bit words (int64) of all of ``draws``, stacked: element
-    (i[, j], k) of a draw is the first output word of Threefry keyed by
-    (seed, stream, t) at counter (i, j k_count + k)."""
+    """The 32-bit words (int64) of all of ``draws``, stacked on the last
+    axis: element (i[, j], k) of a draw is the first output word of Threefry
+    keyed by (seed, stream, t) at counter (i, j k_count + k).
+
+    ``seed`` and ``t`` may carry leading slice axes (a fleet's (K,) seeds
+    and slot counters); the words then get those axes in front, and slice
+    k's words are those of its own single-slice draw. The counters depend
+    on the draws' shapes only and are shared by every slice."""
     dev = seed.device if isinstance(seed, torch.Tensor) else resolve_device(device)
     x0, x1, which, streams = _counters(tuple(draws), dev)
-    seed = seed_tensor(seed, dev)
-    t = torch.as_tensor(t, device=dev).to(torch.int64) & _MASK
+    seed = seed_tensor(seed, dev)[..., None]
+    t = torch.as_tensor(t, device=dev).to(torch.int64)[..., None] & _MASK
     k0, k1 = threefry2x32(seed & _MASK, (seed >> 32) & _MASK, streams, t)
-    bits, _ = threefry2x32(k0[which], k1[which], x0, x1)
+    bits, _ = threefry2x32(k0[..., which], k1[..., which], x0, x1)
     return bits
 
 
 def uniforms(seed, t, draws: Sequence[Draw], device: DeviceLike = None) -> list[torch.Tensor]:
-    """U[0, 1) float32 draws, one tensor of shape (*shape, k) per draw
-    ((*shape) when k == 1): the top 24 bits of each word times 2**-24."""
+    """U[0, 1) float32 draws, one tensor of shape (*lead, *shape, k) per
+    draw ((*lead, *shape) when k == 1), ``lead`` the slice axes of ``seed``
+    and ``t``: the top 24 bits of each word times 2**-24."""
     u = (uniform_bits(seed, t, draws, device) >> 8).to(torch.float32) * 2.0 ** -24
+    lead = u.shape[:-1]
     out = []
-    for (_, shape, k), part in zip(draws, torch.split(u, [math.prod(s) * k for _, s, k in draws])):
-        out.append(part.reshape(shape) if k == 1 else part.reshape(*shape, k))
+    sizes = [math.prod(s) * k for _, s, k in draws]
+    for (_, shape, k), part in zip(draws, torch.split(u, sizes, dim=-1)):
+        out.append(part.reshape(*lead, *shape) if k == 1 else part.reshape(*lead, *shape, k))
     return out
 
 
@@ -131,7 +139,8 @@ def _beta(u: torch.Tensor, a: int) -> torch.Tensor:
 
 def heterogeneity(seed, n: int, m: int, device: DeviceLike = None) -> Heterogeneity:
     """The persistent heterogeneity drawn from ``seed`` (``init_state``
-    passes ``het_seed(run seed)``), keyed like every other draw."""
+    passes ``het_seed(run seed)``), keyed like every other draw. A (K,)
+    ``seed`` tensor draws K slices' heterogeneity, each field (K, ...)."""
     link, ec, ph_d, ph_dd = uniforms(seed, 0, ((LINK_HET, (n, m), 1), (EC_HET, (m, m), 1),
                                                (PHASE_D, (n, m), 1), (PHASE_DD, (m, m), 1)),
                                      device)
@@ -141,7 +150,8 @@ def heterogeneity(seed, n: int, m: int, device: DeviceLike = None) -> Heterogene
 
 def _traffic(noise_u: torch.Tensor, phase: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Normalized traffic in [0, 0.95]: diurnal base + Beta(2,4) noise drawn
-    from the 5 uniforms on ``noise_u``'s last axis."""
+    from the 5 uniforms on ``noise_u``'s last axis; ``t`` is per slice."""
+    t = per_slice(t, 2)
     diurnal = 0.35 + 0.3 * torch.sin(2 * math.pi * t / 288.0 + phase)  # 5-min slots
     return torch.clamp(diurnal + _beta(noise_u, 2) * 0.4, 0.0, 0.95)
 
@@ -167,7 +177,11 @@ def sample_network_state(seed, cfg: CocktailConfig | ShapeConfig,
     an int64 0-d tensor): noise, costs and arrivals keyed by (seed, t),
     persistent structure from ``het`` (the seed-0 heterogeneity when None).
     Tensors land on the seed tensor's device, else on that of ``params``,
-    else on ``device``."""
+    else on ``device``.
+
+    A fleet passes (K,) seeds and slot counters with (K, ...) ``params``
+    and ``het``: every field then has a leading K axis, and slice k equals
+    its single-slice draw bit for bit."""
     if isinstance(seed, torch.Tensor):
         dev = seed.device
     elif params is not None and device is None:
@@ -182,30 +196,30 @@ def sample_network_state(seed, cfg: CocktailConfig | ShapeConfig,
     eye = torch.eye(m, device=dev)
     u_d, u_dd, u_f, u_c, u_e, u_p, u_a = uniforms(seed_tensor(seed, dev), t, slot_draws(n, m))
 
-    d = params.d_base * het.link_het * (1.0 - _traffic(u_d, het.phase_d, t))
-    cap_d = params.cap_d_base * het.ec_het * (1.0 - _traffic(u_dd, het.phase_D, t))
-    cap_d = 0.5 * (cap_d + cap_d.T)
+    d = per_slice(params.d_base, 2) * het.link_het * (1.0 - _traffic(u_d, het.phase_d, t))
+    cap_d = per_slice(params.cap_d_base, 2) * het.ec_het * (1.0 - _traffic(u_dd, het.phase_D, t))
+    cap_d = 0.5 * (cap_d + cap_d.transpose(-1, -2))
     cap_d = cap_d * (1.0 - eye)
     f = params.f_base * (1.0 - _workload(u_f))
-    c = params.c_base * (1.0 + u_c)
-    e = params.e_base * (1.0 + u_e)
-    e = 0.5 * (e + e.T) * (1.0 - eye)
-    p = params.p_base * (1.0 + u_p)
+    c = per_slice(params.c_base, 2) * (1.0 + u_c)
+    e = per_slice(params.e_base, 2) * (1.0 + u_e)
+    e = 0.5 * (e + e.transpose(-1, -2)) * (1.0 - eye)
+    p = per_slice(params.p_base, 1) * (1.0 + u_p)
     arrivals = params.zeta * (0.5 + u_a)  # E[A_i] = zeta_i
 
     # Ragged padding: masked entities have no capacity and generate no data.
     cu_mask, ec_mask = entity_masks(params)
-    link_mask = cu_mask[:, None] * ec_mask[None, :]
-    pair_mask = ec_mask[:, None] * ec_mask[None, :]
+    link_mask = cu_mask[..., :, None] * ec_mask[..., None, :]
+    pair_mask = ec_mask[..., :, None] * ec_mask[..., None, :]
     return NetworkState(d=d * link_mask, cap_d=cap_d * pair_mask, f=f * ec_mask,
                         c=c, e=e, p=p, arrivals=arrivals * cu_mask)
 
 
 def framework_cost(net: NetworkState, collected: torch.Tensor, x: torch.Tensor,
                    y: torch.Tensor) -> torch.Tensor:
-    """Per-slot framework cost C(t), eq. (14)."""
-    trans_cu = torch.sum(net.c * collected)
-    trans_ec = torch.sum(net.e[None, :, :] * y)  # e[j,k] per sample moved j->k
-    trained_at = x + torch.sum(y, dim=1)  # (N, M): trained at EC k
-    compute = torch.sum(net.p[None, :] * trained_at)
+    """Per-slot framework cost C(t), eq. (14); one per leading slice index."""
+    trans_cu = torch.sum(net.c * collected, dim=(-2, -1))
+    trans_ec = torch.sum(net.e[..., None, :, :] * y, dim=(-3, -2, -1))  # e[j,k] per sample j->k
+    trained_at = x + torch.sum(y, dim=-2)  # (..., N, M): trained at EC k
+    compute = torch.sum(net.p[..., None, :] * trained_at, dim=(-2, -1))
     return trans_cu + trans_ec + compute

@@ -12,8 +12,9 @@ Counterpart of ``repro.core.training_alloc``:
 
 The JAX package vmaps the per-EC and per-pair solvers; here the batch is
 written out: every vector argument is (..., N) and every scalar (...), so
-the M ECs or the M(M-1)/2 EC pairs are one leading axis. Sorts are stable,
-as ``jnp.sort``/``jnp.argsort`` are.
+the M ECs or the M(M-1)/2 EC pairs are one leading axis, and a fleet's K
+slices fold into it (K M ECs, K M(M-1)/2 pairs in one call). Sorts are
+stable, as ``jnp.sort``/``jnp.argsort`` are.
 """
 from __future__ import annotations
 
@@ -215,65 +216,69 @@ def linear_pair(b_j, g_kj, b_k, g_jk, r_j, r_k, budget_j, budget_k, link) -> Pai
 
 def full_allocate(beta, gamma, r, budgets, links, iters: int = 40, sweeps: int = 2):
     """ECFull baseline: joint allocation with all EC pairs connected.
-    beta (N, M), gamma (N, M, M) weight of y[i, j, k], r (N, M), budgets (M,),
-    links (M, M). Returns (x (N, M), y (N, M, M), value)."""
-    n, m = beta.shape
+    beta (..., N, M), gamma (..., N, M, M) weight of y[i, j, k], r (..., N, M),
+    budgets (..., M), links (..., M, M); leading axes are slices solved
+    together. Returns (x (..., N, M), y (..., N, M, M), value (...))."""
+    m = beta.shape[-1]
     dev = beta.device
     eye = torch.eye(m, dtype=torch.bool, device=dev)
     zero_nm = torch.zeros_like(beta)
-    zero_n = torch.zeros_like(beta[:, 0])
+    zero_n = torch.zeros_like(beta[..., 0])
 
     def primal(m_dual, a_dual):
-        p_x = m_dual[None, :] + _TINY  # price of x[i, j]
-        p_y = m_dual[None, None, :] + a_dual[None, :, :] + _TINY  # of y[i, j, k]
+        p_x = m_dual[..., None, :] + _TINY  # price of x[i, j]
+        p_y = m_dual[..., None, None, :] + a_dual[..., None, :, :] + _TINY  # of y[i, j, k]
         x, y = zero_nm, torch.zeros_like(gamma)
         for _ in range(sweeps):
-            u_from_y = torch.einsum("ijk,ijk->ik", gamma, y)
-            cap_x = torch.clamp(r - torch.sum(y, dim=2), min=0.0)
+            u_from_y = torch.einsum("...ijk,...ijk->...ik", gamma, y)
+            cap_x = torch.clamp(r - torch.sum(y, dim=-1), min=0.0)
             v = 1.0 / p_x - u_from_y / torch.clamp(beta, min=_TINY)
             x = torch.where(beta > 0, torch.minimum(torch.clamp(v, min=0.0), cap_x), zero_nm)
             y = y.clone()  # updated in place pair by pair (JAX: .at[].set)
             for jk in range(m * m):
                 j, k = jk // m, jk % m
                 if j == k:
-                    continue  # y[:, j, j] is never used and stays 0
-                u_k = beta[:, k] * x[:, k] + torch.einsum("ij,ij->i", gamma[:, :, k], y[:, :, k])
-                c = u_k - gamma[:, j, k] * y[:, j, k]
-                cap = torch.clamp(r[:, j] - x[:, j] - (torch.sum(y[:, j, :], dim=1) - y[:, j, k]),
+                    continue  # y[..., j, j] is never used and stays 0
+                u_k = beta[..., :, k] * x[..., :, k] + torch.einsum(
+                    "...ij,...ij->...i", gamma[..., :, :, k], y[..., :, :, k])
+                c = u_k - gamma[..., :, j, k] * y[..., :, j, k]
+                cap = torch.clamp(r[..., :, j] - x[..., :, j]
+                                  - (torch.sum(y[..., :, j, :], dim=-1) - y[..., :, j, k]),
                                   min=0.0)
-                g = gamma[:, j, k]
-                vv = 1.0 / p_y[:, j, k] - c / torch.clamp(g, min=_TINY)
+                g = gamma[..., :, j, k]
+                vv = 1.0 / p_y[..., :, j, k] - c / torch.clamp(g, min=_TINY)
                 vv = torch.minimum(torch.clamp(vv, min=0.0), cap)
-                y[:, j, k] = torch.where(g > 0, vv, zero_n)
+                y[..., :, j, k] = torch.where(g > 0, vv, zero_n)
         return x, y
 
+    def symmetric_flow(y):
+        flow = torch.einsum("...ijk->...jk", y)
+        return flow + flow.transpose(-1, -2)
+
     steps = _dual_steps(iters, dev)
-    m_dual = torch.full((m,), 0.01, device=dev)
-    a_dual = torch.full((m, m), 0.01, device=dev)
+    m_dual = torch.full_like(budgets, 0.01)
+    a_dual = torch.full_like(links, 0.01)
     for t in range(iters):
         x, y = primal(m_dual, a_dual)
-        trained_at = torch.sum(x, dim=0) + torch.einsum("ijk->k", y)
+        trained_at = torch.sum(x, dim=-2) + torch.einsum("...ijk->...k", y)
         g_m = (trained_at - budgets) / (budgets + 1.0)
-        flow = torch.einsum("ijk->jk", y)
-        flow = flow + flow.T
-        g_a = torch.where(eye, 0.0, (flow - links) / (links + 1.0))
+        g_a = torch.where(eye, 0.0, (symmetric_flow(y) - links) / (links + 1.0))
         m_dual = torch.clamp(m_dual + steps[t] * g_m, min=0.0)
         a_dual = torch.clamp(a_dual + steps[t] * g_a, min=0.0)
     x, y = primal(m_dual, a_dual)
 
     # Feasibility: queue caps, then compute, then links (downscaling only).
-    dep = x + torch.sum(y, dim=2)
+    dep = x + torch.sum(y, dim=-1)
     s_q = torch.clamp(r / torch.clamp(dep, min=_TINY), max=1.0)
     x = x * s_q
-    y = y * s_q[:, :, None]
-    trained_at = torch.sum(x, dim=0) + torch.einsum("ijk->k", y)
+    y = y * s_q[..., None]
+    trained_at = torch.sum(x, dim=-2) + torch.einsum("...ijk->...k", y)
     s_f = torch.clamp(budgets / torch.clamp(trained_at, min=_TINY), max=1.0)
-    x = x * s_f[None, :]
-    y = y * s_f[None, None, :]
-    flow = torch.einsum("ijk->jk", y)
-    s_l = torch.clamp(links / torch.clamp(flow + flow.T, min=_TINY), max=1.0)
+    x = x * s_f[..., None, :]
+    y = y * s_f[..., None, None, :]
+    s_l = torch.clamp(links / torch.clamp(symmetric_flow(y), min=_TINY), max=1.0)
     s_l = torch.where(eye, 1.0, s_l)
-    y = y * s_l[None, :, :]
+    y = y * s_l[..., None, :, :]
 
-    u = beta * x + torch.einsum("ijk,ijk->ik", gamma, y)
-    return x, y, _log_value(u.reshape(-1))
+    u = beta * x + torch.einsum("...ijk,...ijk->...ik", gamma, y)
+    return x, y, _log_value(u.flatten(-2))

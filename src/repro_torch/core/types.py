@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import NamedTuple, Optional, Union
+from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -60,8 +60,10 @@ class SliceParams(NamedTuple):
     ``cu_mask`` / ``ec_mask`` mark real entities (1.0) against ragged padding
     (0.0); masked entities get zero capacity/arrivals and ``MASKED_WEIGHT``
     solver weights. The policy leaves (``collect_id`` ... ``learning_aid``)
-    mirror the JAX package's fields for branch-free dispatch; the port's
-    static dispatch ignores them.
+    name the slice's policies for ``SWITCHED`` dispatch (``from_config``
+    defaults them to DS's; ``datasche.with_policy`` fills them from a
+    spec); static dispatch ignores them. A fleet stacks K slices' params
+    on a leading axis of every leaf (``stack_slice_params``).
     """
 
     zeta: torch.Tensor  # (N,) average data generation rate per CU
@@ -149,6 +151,48 @@ def mask_pairs(a: torch.Tensor, row_mask: torch.Tensor, col_mask: torch.Tensor,
     masked to ``fill``."""
     keep = (row_mask[..., :, None] * col_mask[..., None, :]) > 0
     return torch.where(keep, a, torch.full_like(a, fill))
+
+
+def per_slice(v, nd: int):
+    """A per-slice value (a scalar or a (K,) tensor of a fleet's slices)
+    made to broadcast against tensors with ``nd`` more trailing axes."""
+    if not isinstance(v, torch.Tensor):
+        return v
+    return v.reshape(*v.shape, *([1] * nd))
+
+
+def tree_map(fn: Callable, *trees):
+    """``fn`` applied leaf by leaf over matching ``NamedTuple`` containers
+    (``SliceParams``, ``SchedulerState``, ``NetworkState``, ...); ``fn``
+    receives the leaves of one field, ``None`` where a field is unset."""
+    first = trees[0]
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*[tree_map(fn, *leaves) for leaves in zip(*trees)])
+    return fn(*trees)
+
+
+def _stack_leaves(*leaves):
+    if all(leaf is None for leaf in leaves):
+        return None
+    if any(leaf is None for leaf in leaves):
+        raise ValueError("cannot stack a field that only some slices set")
+    return torch.stack(leaves)
+
+
+def stack_trees(trees: Sequence) -> "tuple":
+    """Stack K containers of one type (per-slice params, states, networks,
+    heterogeneity) into one with a leading K axis on every leaf."""
+    return tree_map(_stack_leaves, *trees)
+
+
+def unstack(tree, k: int):
+    """Slice ``k`` of a stacked (K, ...) container."""
+    return tree_map(lambda leaf: None if leaf is None else leaf[k], tree)
+
+
+def stack_slice_params(params: Sequence["SliceParams"]) -> "SliceParams":
+    """Stack K per-slice ``SliceParams`` into one (K, ...) ``SliceParams``."""
+    return stack_trees(params)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -320,11 +364,15 @@ def het_seed(seed: int) -> int:
     return int.from_bytes(digest[:8], "little") & 0x7FFF_FFFF_FFFF_FFFF
 
 
-def seed_tensor(seed: "int | torch.Tensor", device: torch.device) -> torch.Tensor:
-    """A seed as the int64 0-d tensor on ``device`` that keys the sampler
-    (an int is cut to its low 63 bits)."""
+def seed_tensor(seed: "int | Sequence[int] | torch.Tensor", device: torch.device) -> torch.Tensor:
+    """A seed as the int64 tensor on ``device`` that keys the sampler: 0-d
+    for an int, (K,) for a sequence of K ints (one per slice of a fleet);
+    an int is cut to its low 63 bits."""
     if isinstance(seed, torch.Tensor):
         return seed.to(device=device, dtype=torch.int64)
+    if isinstance(seed, (list, tuple)):
+        return torch.tensor([int(s) & 0x7FFF_FFFF_FFFF_FFFF for s in seed],
+                            dtype=torch.int64, device=device)
     return torch.tensor(int(seed) & 0x7FFF_FFFF_FFFF_FFFF, dtype=torch.int64, device=device)
 
 

@@ -7,6 +7,8 @@ that has only PyTorch:
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -652,3 +654,93 @@ def test_sampler_draws_the_same_bits_on_card_and_cpu(card):
     for a, b in zip(network.heterogeneity(7, 1024, 32, device=card),
                     network.heterogeneity(7, 1024, 32, device="cpu")):
         assert torch.equal(a.cpu(), b)
+
+
+def _fleet_matcher_inputs(rng, card, op):
+    """A fleet's K = 8 distinct problems at the main path's shape (pairing:
+    32 ECs), each slice with its own entity masks (a ragged fleet's)."""
+    k, n, m = 8, 1024, 32
+    cu = (rng.random((k, n)) > 0.1).astype(np.float32)
+    ec = (rng.random((k, m)) > 0.1).astype(np.float32)
+    cu[:, 0] = ec[:, 0] = 1.0
+    masks = {"cu_mask": torch.as_tensor(cu, device=card),
+             "ec_mask": torch.as_tensor(ec, device=card)}
+    if op == "collection":
+        w = np.log(rng.uniform(1.0, 1e6, (k, n, m))).astype(np.float32)
+        w[rng.random(w.shape) < 0.2] = -np.inf
+        return (torch.as_tensor(w, device=card),), masks
+    if op == "assignment":
+        w = rng.uniform(-5e5, 1e6, (k, n, m)).astype(np.float32)
+        return (torch.as_tensor(w, device=card),), masks
+    solo = rng.uniform(-1e3, 1e4, (k, m)).astype(np.float32)
+    pair = rng.uniform(-2e3, 2e4, (k, m, m)).astype(np.float32)
+    pair = np.maximum(pair, np.swapaxes(pair, -1, -2))
+    return (torch.as_tensor(solo, device=card), torch.as_tensor(pair, device=card)), \
+        {"ec_mask": masks["ec_mask"]}
+
+
+@pytest.mark.parametrize("op", ["collection", "assignment", "pairing"])
+def test_fleet_batched_matchers_match_plain_version(card, op):
+    """A fleet's one matcher call over K = 8 distinct, differently masked
+    problems: one launch, bit-equal to the plain version, and slice k
+    bit-equal to the kernel on problem k alone (so a fleet slice matches
+    as its own single-slice run does)."""
+    fn = getattr(mops, f"greedy_{op}")
+    args, masks = _fleet_matcher_inputs(np.random.default_rng(len(op)), card, op)
+    before = mkernel.launches[f"greedy_{op}"]
+    got = fn(*args, impl="kernel", **masks)
+    assert mkernel.launches[f"greedy_{op}"] == before + 1
+    want = fn(*args, impl="ref", **masks)
+    got, want = (got, want) if op == "collection" else ((got,), (want,))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for k in range(8):
+        one = fn(*(a[k] for a in args), impl="kernel", **{n: v[k] for n, v in masks.items()})
+        one = one if op == "collection" else (one,)
+        for a, b in zip(got, one):
+            assert torch.equal(a[k], b)
+    assert float(got[0].sum(dim=(-2, -1)).min()) > 0
+
+
+@pytest.mark.parametrize("fleet", ["l-ds", "mixed"])
+def test_fleet_slot_on_card_matches_cpu(card, fleet):
+    """One fleet slot at 256 x 16 on the card (kernels) and on the CPU
+    (plain versions) from the same state and networks: decisions equal,
+    floats within 1e-5 of each slice's scale (the two devices sum in other
+    orders), one matcher launch per policy group."""
+    from repro_torch import bridge
+    from repro_torch.core import (LDS, SWITCHED, CocktailConfig, FleetEngine, SliceJob,
+                                  slot_network)
+    from repro_torch.core.datasche import ALL_SPECS
+
+    base = CocktailConfig(n_cu=256, n_ec=16, eps=0.2, delta=1e-4, pair_iters=40)
+    names = (["l-ds"] * 8 if fleet == "l-ds" else
+             ["ds", "l-ds", "no-sdc", "no-slt", "no-lsa", "greedy", "ecself", "cufull"])
+    jobs = [SliceJob(dataclasses.replace(base, seed=s, zeta=400.0 + 50 * s), ALL_SPECS[n])
+            for s, n in enumerate(names)]
+    eng_c = FleetEngine.from_jobs(jobs, device=card)
+    eng_p = FleetEngine.from_jobs(jobs, device="cpu")
+    assert eng_c.spec == (LDS if fleet == "l-ds" else SWITCHED)
+    state, _ = eng_c.run(3)  # a state with backlogs and trained data
+    net = slot_network(eng_c.shape, state, eng_c.params)
+    mkernel.reset_launch_counts()
+    new_c, rec_c, dec_c = eng_c.step(state, net)
+    want = ({"greedy_collection": 1, "greedy_assignment": 1, "greedy_pairing": 2}
+            if fleet == "l-ds" else
+            {"greedy_collection": 1, "greedy_assignment": 2, "greedy_pairing": 3})
+    assert dict(mkernel.launches) == want
+    new_p, rec_p, dec_p = eng_p.step(bridge.from_numpy(bridge.to_numpy(state), "cpu"),
+                                     bridge.from_numpy(bridge.to_numpy(net), "cpu"))
+    for f in ("alpha", "theta", "z"):
+        assert torch.equal(getattr(dec_c, f).cpu(), getattr(dec_p, f)), f
+    pairs = [(f"dec.{f}", getattr(dec_c, f), getattr(dec_p, f)) for f in ("x", "y")]
+    pairs += [(f"rec.{f}", getattr(rec_c, f), getattr(rec_p, f)) for f in rec_c._fields]
+    for grp in ("queues", "mults", "emp_mults"):
+        pairs += [(f"{grp}.{f}", getattr(getattr(new_c, grp), f), getattr(getattr(new_p, grp), f))
+                  for f in getattr(new_c, grp)._fields]
+    for name, a, b in pairs:
+        for k in range(len(jobs)):
+            scale = float(b[k].abs().max()) or 1.0
+            err = float((a[k].double().cpu() - b[k].double()).abs().max()) / scale
+            assert err <= 1e-5, f"{name} slice {k}: {err:.3e} of scale"
+    assert float(dec_p.alpha.sum()) > 0

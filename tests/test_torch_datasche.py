@@ -52,10 +52,10 @@ CFG_T = T.CocktailConfig(n_cu=N, n_ec=M, seed=0)
 SPECS = ["ds", "ds-exact", "l-ds", "no-sdc", "no-slt", "no-lsa", "ecfull", "ecself", "cufull"]
 
 
-def _step_repaired(cfg, spec, state, net):
+def _step_repaired(cfg, spec, state, net, params=None):
     """The JAX ``step``, traced with the slack-budget waterfill repaired."""
     with mock.patch.object(JTA, "solo_waterfill", repaired_jax_waterfill):
-        return JD.step(cfg, spec, state, net)
+        return JD.step(cfg, spec, state, net, params)
 
 
 _jit_step = jax.jit(_step_repaired, static_argnums=(0, 1))
@@ -110,18 +110,18 @@ def _assert_decisions_equal(dec_t, dec_j):
                                  f"{got[tuple(flips.T)]}, JAX {want[tuple(flips.T)]}")
 
 
-@pytest.mark.parametrize("name", SPECS)
-def test_teacher_forced_slots_match_jax(name):
-    spec_j, spec_t = J.ALL_SPECS[name], T.ALL_SPECS[name]
+def _check_teacher_forced(name, spec_j, spec_t, params_j=None, params_t=None):
+    """Two teacher-forced slots of ``spec_j`` (JAX) and ``spec_t`` (port),
+    run on ``params_j`` / ``params_t`` (the config's when None)."""
     state = _warm_state()
     for slot in range(2):
         net = _jit_sample(jax.random.PRNGKey(100 + slot), CFG_J.shape, state.t, CFG_J.params,
                           het_key=state.het_key)
         # An exact spec calls its host-side oracles on concrete arrays: no jit.
         jax_step = _step_repaired if spec_j.exact else _jit_step
-        new_j, rec_j, dec_j = jax_step(CFG_J, spec_j, state, net)
+        new_j, rec_j, dec_j = jax_step(CFG_J, spec_j, state, net, params_j)
         new_t, rec_t, dec_t = T.step(CFG_T, spec_t, bridge.from_numpy(_state_tree(state), "cpu"),
-                                     bridge.from_numpy(_tree(net), "cpu"))
+                                     bridge.from_numpy(_tree(net), "cpu"), params_t)
         _assert_decisions_equal(dec_t, dec_j)
         assert float(dec_j.alpha.sum()) > 0 or name == "cufull"
         for f in ("x", "y"):
@@ -135,6 +135,29 @@ def test_teacher_forced_slots_match_jax(name):
         for f in ("t", "total_cost", "total_trained", "uploaded"):
             _assert_close(f"slot {slot} {f}", getattr(new_t, f), getattr(new_j, f))
         state = new_j
+
+
+@pytest.mark.parametrize("name", SPECS)
+def test_teacher_forced_slots_match_jax(name):
+    _check_teacher_forced(name, J.ALL_SPECS[name], T.ALL_SPECS[name])
+
+
+JITTABLE = [n for n, s in T.ALL_SPECS.items() if not s.exact]
+# SWITCHED_NOAID ignores the learning-aid leaf, so L-DS runs under SWITCHED only.
+SWITCHED_CASES = ([(n, "switched") for n in JITTABLE]
+                  + [(n, "switched-noaid") for n in JITTABLE if not T.ALL_SPECS[n].learning_aid])
+
+
+@pytest.mark.parametrize("name, switch", SWITCHED_CASES)
+def test_switched_teacher_forced_slots_match_jax(name, switch):
+    """Per-slice dispatch: a slice whose policy leaves name ``name`` runs
+    under SWITCHED / SWITCHED_NOAID as the JAX package's ``lax.switch``
+    step does."""
+    spec_j = J.SWITCHED if switch == "switched" else J.SWITCHED_NOAID
+    spec_t = T.SWITCHED if switch == "switched" else T.SWITCHED_NOAID
+    params_j = JD.with_policy(CFG_J.params, J.ALL_SPECS[name])
+    params_t = T.with_policy(T.SliceParams.from_config(CFG_T, device="cpu"), T.ALL_SPECS[name])
+    _check_teacher_forced(name, spec_j, spec_t, params_j, params_t)
 
 
 def test_lds_virtual_step_moves_only_empirical_multipliers():
@@ -191,13 +214,6 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         T.init_state(CFG_T)
 
 
-def test_switched_specs_are_refused():
-    state = T.init_state(CFG_T, device="cpu")
-    for spec in (T.SWITCHED, T.SWITCHED_NOAID):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            T.step(CFG_T, spec, state)
-
-
 def test_policy_ids_match_jax():
     assert T.COLLECTION_POLICIES.names == J.COLLECTION_POLICIES.names
     assert T.TRAINING_POLICIES.names == J.TRAINING_POLICIES.names
@@ -225,8 +241,13 @@ def test_port_imports_without_jax_or_the_jax_package():
         "sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.bridge, repro_torch.core.metrics\n"
         "import repro_torch.kernels.matching.ops, repro_torch.configs.cocktail_paper\n"
-        "from repro_torch.core import CocktailConfig, DS, run\n"
+        "import repro_torch.core.fleet, repro_torch.core.job\n"
+        "import repro_torch.examples.fleet_multi_slice, repro_torch.examples.ragged_fleet\n"
+        "import repro_torch.examples.mixed_policy_fleet\n"
+        "from repro_torch.core import CocktailConfig, DS, FleetEngine, LDS, SliceJob, run\n"
         "run(CocktailConfig(n_cu=6, n_ec=3, pair_iters=10), DS, 1, device='cpu')\n"
+        "cfg = CocktailConfig(n_cu=6, n_ec=3, pair_iters=10)\n"
+        "FleetEngine.from_jobs([SliceJob(cfg), SliceJob(cfg, LDS)], device='cpu').run(1)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
     )
