@@ -74,7 +74,19 @@ Phases, each fatal on failure:
      against the CPU, a ragged fleet (1024 x 32, 768 x 24, 512 x 16,
      1024 x 16 padded to 1024 x 32) and a mixed-policy fleet (ds, l-ds,
      no-sdc, no-slt, no-lsa, greedy, ecself, cufull under SWITCHED) over 4
-     slots against their slices' own runs.
+     slots against their slices' own runs;
+ 11. train minitron-4b at its full width through ``repro_torch.launch.train``
+     (B 16 x 128, DS every 4 steps, 8 steps, float32 master weights and
+     AdamW, bf16 compute, per-layer remat; 32 layers unless the peak memory
+     passes 95 % of the card, then 16): ms per step, tokens/s, peak memory,
+     every loss finite, the wgmma attention kernel launched exactly twice a
+     layer a step (forward and recompute), the matchers' launches per slot;
+     one profiled step (device busy, launches); reduced minitron-4b's train
+     step on the card against the CPU; a run killed after step 10 and
+     resumed against an uninterrupted 20-step run; the attention Function at
+     the train shape (forward against the plain version, gradients bit-equal
+     to autograd through it, times beside SDPA's forward and backward); and
+     the scan's CUDA route raising under autograd.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without that last
@@ -1505,6 +1517,383 @@ def phase_fleet(torch, core, kernel, bridge, metrics):
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 11: Cocktail-scheduled LM training
+# --------------------------------------------------------------------------
+
+TRAIN_ARGV = ["--arch", "minitron-4b", "--batch", "16", "--seq", "128", "--n-cu", "12",
+              "--slot-every", "4", "--scheduler", "ds", "--steps", "8", "--seed", "0",
+              "--log-every", "100"]
+TRAIN_MEMORY_SHARE = 0.95  # of the card's memory; above it the run is cut to 16 layers
+TRAIN_CUT_LAYERS = 16
+# The reduced card step against the CPU's: float32 both, other summation
+# orders (loss relative; gradients, moments and parameters of each leaf's
+# scale; parameters where |g| is above the gradients' tolerance, as
+# tests/test_torch_train.py holds them, since AdamW's first step moves an
+# element by about lr whatever |g| is).
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_LEAF_TOL = 1e-4
+RESUME_TOL = 1e-6
+
+
+class Crash(Exception):
+    """A training run killed between two steps."""
+
+
+def crash_after(train, n_steps: int):
+    """Patch ``train.make_train_step`` so the run's step raises ``Crash`` on
+    its call after ``n_steps``; returns the restoring function."""
+    make = train.make_train_step
+
+    def crashing(*args, **kwargs):
+        step, calls = make(*args, **kwargs), []
+
+        def run(*a):
+            if len(calls) == n_steps:
+                raise Crash
+            calls.append(1)
+            return step(*a)
+        return run
+
+    train.make_train_step = crashing
+    return lambda: setattr(train, "make_train_step", make)
+
+
+def train_full_width(torch, train, configs, kernels, n_layers: int) -> dict:
+    """``train.main`` on minitron-4b (cut to ``n_layers``, registered as
+    ``minitron-4b-<n>l``, when it is not 0) with exact launch counts: the
+    wgmma attention twice a layer a step (forward and the remat
+    recompute), no other attention kernel, and the matchers DS launches a
+    slot (collection and pairing once each)."""
+    import gc
+    argv = list(TRAIN_ARGV)
+    if n_layers:
+        cut = configs.register(dataclasses.replace(configs.get_config("minitron-4b"),
+                                                   name=f"minitron-4b-{n_layers}l",
+                                                   n_layers=n_layers))
+        argv[argv.index("minitron-4b")] = cut.name
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    summary = train.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    layers, steps = summary["n_layers"], len(summary["losses"])
+    slots = summary["sched_slots"]
+    per_slot = {"greedy_collection": 1, "greedy_assignment": 0, "greedy_pairing": 1}
+    want = {"flash_attention": 2 * layers * steps, "flash_attention_wgmma": 2 * layers * steps,
+            **{k: n * slots for k, n in per_slot.items()}}
+    launched = expect_counts(kernels, f"minitron-4b training, {layers} layers", want)
+    if steps != 8 or not all(math.isfinite(x) for x in summary["losses"]):
+        fail(f"training: losses {summary['losses']} are not 8 finite values")
+    ms = summary["step_ms"][1:8]
+    return {"summary": {k: v for k, v in summary.items() if k != "step_ms"},
+            "step_ms": summary["step_ms"], "ms_per_step": sum(ms) / len(ms),
+            "tokens_per_s": 16 * 128 / (sum(ms) / len(ms) / 1e3), "run_s": run_s,
+            "peak_bytes": peak, "peak_gib": peak / 2 ** 30, "launches": launched,
+            "wgmma_per_step": launched["flash_attention_wgmma"] / steps,
+            "matcher_launches_per_slot": {k: launched[k] / slots for k in per_slot},
+            "slots": slots}
+
+
+def profile_train_step(torch, api, train, steps, optim, kernels, n_layers) -> dict:
+    """One train step of the same model and a batch of the run's sampler,
+    profiled after a warm step: device busy time, launches, busy share of
+    the host-clock step; the wgmma launches of one step counted."""
+    import gc
+    from repro_torch.data import CocktailSampler, TokenSource
+    cfg = api.cfg
+    ck = train.build_cocktail(12, 2, 0)
+    sampler = CocktailSampler(ck, [TokenSource(i, cfg.vocab_size, 128) for i in range(12)],
+                              batch_per_ec=8)
+    state = api.init(0)
+    opt = optim.adamw_init(state)
+    step = steps.make_train_step(api, optim.AdamWConfig(), total_steps=8)
+    import types
+    host = sampler.sample(types.SimpleNamespace(x=np.ones((12, 2), np.float32),
+                                                y=np.zeros((12, 2, 2), np.float32)))
+    batch = {k: torch.as_tensor(host[k], device="cuda") for k in ("tokens", "labels", "weights")}
+    reset_counts(*kernels)
+    state, opt, met = step(state, opt, batch)
+    torch.cuda.synchronize()
+    per_step = expect_counts(kernels, "one train step", {
+        "flash_attention": 2 * n_layers, "flash_attention_wgmma": 2 * n_layers})
+
+    def one():
+        nonlocal state, opt, met
+        state, opt, met = step(state, opt, batch)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_window(torch, one, match="flash_fwd_sm90_kernel")
+
+    # The same step in three spans between CUDA events (stream time, host
+    # gaps included): the loss's forward, the backward with the per-layer
+    # recompute, and the AdamW update with its global norm.
+    from repro_torch.optim.adamw import adamw_update_
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    named = dict(state.named_parameters())
+    torch.cuda.synchronize()
+    events[0].record()
+    loss, _ = api.loss(state, batch)
+    events[1].record()
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    events[2].record()
+    opt, _ = adamw_update_(named, grads, opt, optim.AdamWConfig(),
+                           optim.cosine_schedule(opt.step, 8, 1))
+    events[3].record()
+    torch.cuda.synchronize()
+    spans = {name: events[i].elapsed_time(events[i + 1])
+             for i, name in enumerate(("forward_ms", "backward_ms", "optimizer_ms"))}
+    del loss, grads, named
+    out = {**prof, "unprofiled_step_ms": step_ms, "launches": per_step,
+           "busy_share_of_unprofiled_step": prof["device_busy_ms"] / step_ms,
+           "loss": float(met["loss"]), "spans": spans}
+    del state, opt, met, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_card_vs_cpu(torch, models, configs, steps, optim, kernels) -> dict:
+    """Reduced minitron-4b in float32, the same weights and batch: the loss,
+    the gradients and one train step (moments, updated parameters) on the
+    card (kernels) and on the CPU (plain versions)."""
+    cfg = configs.reduced(configs.get_config("minitron-4b"))
+    rng = np.random.default_rng(11)
+    tokens = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    labels[:, -1] = -1
+    weights = np.array([1.3, 0.0, 0.7, 2.0], np.float32)
+    res = {}
+    weights0 = models.build_model(cfg, device="cpu").init(0).state_dict()
+    for dev in ("cuda", "cpu"):
+        api = models.build_model(cfg, device=dev)
+        model = models.new_model(cfg, dev)
+        model.load_state_dict(weights0)
+        batch = {"tokens": torch.as_tensor(tokens, device=dev),
+                 "labels": torch.as_tensor(labels, device=dev),
+                 "weights": torch.as_tensor(weights, device=dev)}
+        if dev == "cuda":
+            reset_counts(*kernels)
+        model.requires_grad_(True)
+        named = dict(model.named_parameters())
+        loss, _ = api.loss(model, batch)
+        grads = torch.autograd.grad(loss, list(named.values()))
+        p0 = {k: p.detach().cpu().clone() for k, p in named.items()}
+        opt = optim.adamw_init(model)
+        model, opt, met = steps.make_train_step(api, optim.AdamWConfig(), total_steps=10)(
+            model, opt, batch)
+        res[dev] = {"loss": float(loss.detach()), "step_loss": float(met["loss"]),
+                    "grads": {k: g.cpu() for k, g in zip(named, grads)}, "p0": p0,
+                    "params": {k: p.detach().cpu() for k, p in model.named_parameters()},
+                    "m": {k: t.cpu() for k, t in opt.m.items()},
+                    "v": {k: t.cpu() for k, t in opt.v.items()}}
+        if dev == "cuda":
+            n = cfg.n_layers  # float32: the SIMT kernel, once a layer a forward
+            launched = expect_counts(kernels, "reduced train step", {"flash_attention": 2 * n})
+    card, cpu = res["cuda"], res["cpu"]
+    loss_rel = max(abs(card[k] - cpu[k]) / abs(cpu[k]) for k in ("loss", "step_loss"))
+    if loss_rel > TRAIN_LOSS_TOL:
+        fail(f"reduced train step: card and CPU losses differ by {loss_rel:.3e} (relative)")
+    worst = {"grads": 0.0, "m": 0.0, "v_root": 0.0, "params": 0.0}
+    flips = 0
+    for k, g in cpu["grads"].items():
+        for name, a, b in (("grads", card["grads"][k], g), ("m", card["m"][k], cpu["m"][k]),
+                           ("v_root", card["v"][k].sqrt(), cpu["v"][k].sqrt())):
+            worst[name] = max(worst[name], rel_err(a, b)[1])
+        above = g.abs() > TRAIN_LEAF_TOL * g.abs().max()
+        want, got = cpu["params"][k], card["params"][k]
+        if bool(above.any()):
+            err = float((got - want).abs()[above].max()) / max(float(want.abs().max()), 1e-30)
+            worst["params"] = max(worst["params"], err)
+        flip = torch.sign(got - card["p0"][k]) != torch.sign(want - cpu["p0"][k])
+        if bool((flip & above).any()):
+            fail(f"reduced train step: {k} moved the other way where |g| is above "
+                 f"{TRAIN_LEAF_TOL} of its scale")
+        flips += int(flip.sum())
+    bad = {k: v for k, v in worst.items() if v > TRAIN_LEAF_TOL}
+    if bad:
+        fail(f"reduced train step: card and CPU differ by {bad} of each leaf's scale "
+             f"(limit {TRAIN_LEAF_TOL})")
+    return {"loss_rel_err": loss_rel, "err_of_leaf_scale": worst,
+            "sign_flips_below_noise": flips, "launches": launched,
+            "loss": card["loss"], "tol": {"loss": TRAIN_LOSS_TOL, "leaf": TRAIN_LEAF_TOL}}
+
+
+def train_resume(torch, train, kernels, workdir: Path) -> dict:
+    """On the card at reduced size: a 20-step run killed after step 10 and
+    run again against an uninterrupted 20-step run (step-20 snapshots), with
+    torch.use_deterministic_algorithms on."""
+    import shutil
+    shutil.rmtree(workdir, ignore_errors=True)
+    args = ["--arch", "minitron-4b", "--reduced", "--batch", "4", "--seq", "32",
+            "--n-cu", "6", "--steps", "20", "--checkpoint-every", "10", "--slot-every", "3",
+            "--lr", "1e-3", "--log-every", "100"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        restore = crash_after(train, 10)
+        try:
+            train.main(args + ["--checkpoint-dir", str(workdir / "a")])
+            fail("the run meant to crash after step 10 ran to its end")
+        except Crash:
+            pass
+        finally:
+            restore()
+        resumed = train.main(args + ["--checkpoint-dir", str(workdir / "a")])
+        whole = train.main(args + ["--checkpoint-dir", str(workdir / "b")])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if resumed["start_step"] != 10:
+        fail(f"resume: started at step {resumed['start_step']}, expected 10")
+    worst, bit_equal = 0.0, True
+    with np.load(workdir / "a" / "step_0000000020.npz") as a, \
+            np.load(workdir / "b" / "step_0000000020.npz") as b:
+        if sorted(a.files) != sorted(b.files):
+            fail("resume: the two step-20 snapshots hold other leaves")
+        for key in b.files:
+            if key == "__meta__":
+                continue
+            x, y = a[key].astype(np.float64), b[key].astype(np.float64)
+            bit_equal &= bool(np.array_equal(a[key], b[key]))
+            worst = max(worst, float(np.abs(x - y).max()) / max(float(np.abs(y).max()), 1e-30))
+    shutil.rmtree(workdir, ignore_errors=True)
+    if worst > RESUME_TOL:
+        fail(f"resume: the resumed run's parameters are {worst:.3e} of scale from the "
+             f"uninterrupted run's (limit {RESUME_TOL})")
+    return {"bit_equal": bit_equal, "max_err_of_scale": worst,
+            "losses_equal": resumed["losses"] == whole["losses"][10:],
+            "deterministic_algorithms": True, "tol_of_scale": RESUME_TOL}
+
+
+def attention_train_shape(torch, fops, fref, fkernel) -> dict:
+    """The attention Function at the train step's shape (B 16 x 128, H 32 /
+    8, hd 128, bf16, causal): forward against ``attention_chunked`` at
+    BF16_TOL of scale, dq / dk / dv bit-equal to autograd through
+    ``attention_chunked``; kernel forward and recompute backward times
+    beside SDPA's forward and backward and the operations bound."""
+    b, s, h, hkv, hd = 16, 128, 32, 8, 128
+    spec = fref.AttnSpec(causal=True)
+    q, k, v, qp, kp, _ = attn_inputs(torch, b, s, s, h, hkv, hd, torch.bfloat16, 21)
+    g = torch.as_tensor(np.random.default_rng(22).normal(size=(b, s, h, hd)).astype(np.float32),
+                        device="cuda").to(torch.bfloat16)
+    before = dict(fkernel.launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fops.flash_attention(*leaves, qp, kp, spec)
+    if fkernel.launches["flash_attention_wgmma"] != before["flash_attention_wgmma"] + 1:
+        fail("the attention Function at the train shape did not launch the wgmma kernel")
+    grads = torch.autograd.grad(out, leaves, g)
+    plain_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = fops.attention_chunked(*plain_leaves, qp, kp, spec)
+    plain_grads = torch.autograd.grad(plain, plain_leaves, g)
+    err, rel = rel_err(out, plain)
+    if rel > BF16_TOL:
+        fail(f"attention Function forward at the train shape: {rel:.3e} of scale from "
+             f"attention_chunked (limit {BF16_TOL})")
+    for name, a, c in zip("qkv", grads, plain_grads):
+        if not torch.equal(a, c):
+            fail(f"attention Function d{name} is not bit-equal to autograd through "
+                 f"attention_chunked")
+
+    def fwd():
+        return fops.flash_attention(*leaves, qp, kp, spec)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), leaves, g)
+
+    F = torch.nn.functional
+    sd_leaves = [t.transpose(1, 2).detach().clone().requires_grad_() for t in (q, k, v)]
+    gt = g.transpose(1, 2)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(*sd_leaves, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), sd_leaves, gt)
+
+    fwd_ms, fwd_bwd_ms = cuda_ms(torch, fwd, 20, 3), cuda_ms(torch, fwd_bwd, 10, 2)
+    sdpa_ms, sdpa_fwd_bwd_ms = cuda_ms(torch, sdpa_fwd, 20, 3), cuda_ms(torch, sdpa_fwd_bwd, 10, 2)
+    with torch.no_grad():
+        plain_ms = cuda_ms(torch, lambda: fops.attention_chunked(q, k, v, qp, kp, spec), 10, 2)
+    bound_ms, bound_by, visible = attn_bound(torch, fref, q, k, v, qp, kp, spec, None)
+    # The backward's least time: q, k, v and the output's gradient read once,
+    # dq, dk and dv written once (every key is seen here), the positions
+    # read; or five products of 2 hd operations per visible pair (S
+    # recomputed, dP, dV, dQ, dK) at the bf16 tensor-core peak.
+    bwd_bytes = (3 * q.numel() + 4 * k.numel()) * q.element_size() + \
+        4 * (qp.numel() + kp.numel())
+    bwd_terms = {"bytes": bwd_bytes / H100_BYTES_PER_S * 1e3,
+                 "operations": 5 * 2.0 * hd * visible / H100_BF16_TC_OPS_PER_S * 1e3}
+    bwd_bound_by = max(bwd_terms, key=bwd_terms.get)
+    return {"shape": [b, s, s, h, hkv, hd], "dtype": "bfloat16", "spec": "causal",
+            "forward_err_of_scale": rel, "max_abs_err": err, "grads_bit_equal": True,
+            "ms": fwd_ms, "forward_ms": fwd_ms, "backward_ms": fwd_bwd_ms - fwd_ms,
+            "forward_backward_ms": fwd_bwd_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "backward_bound_ms": bwd_terms[bwd_bound_by], "backward_bound_by": bwd_bound_by,
+            "library_ms": sdpa_ms, "library_forward_backward_ms": sdpa_fwd_bwd_ms}
+
+
+def scan_refuses_autograd(torch, sops) -> dict:
+    """The scan's CUDA route raises under autograd (no backward kernel)."""
+    x = torch.zeros((1, 8, 16), device="cuda", requires_grad=True)
+    dt, b, c = (torch.zeros(s, device="cuda") for s in ((1, 8, 16), (1, 8, 4), (1, 8, 4)))
+    try:
+        sops.mamba1_scan(x, dt, -torch.ones((16, 4), device="cuda"), b, c)
+    except NotImplementedError as exc:
+        return {"raises": True, "message": str(exc)}
+    fail("the scan's CUDA route ran under autograd instead of raising")
+
+
+def phase_train(torch, models, configs, steps, kernels, fkernel, fops, fref, sops) -> dict:
+    """Phase 11: the training path (``repro_torch.launch.train.main``) at
+    minitron-4b's full width, 32 layers unless the peak memory passes
+    TRAIN_MEMORY_SHARE of the card (then TRAIN_CUT_LAYERS); one profiled
+    step; the reduced step card vs CPU; resume; the attention Function at
+    the train shape; the scan's refusal under autograd."""
+    import gc
+    from repro_torch import optim
+    from repro_torch.launch import train
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {"card_memory_bytes": total, "memory_share_limit": TRAIN_MEMORY_SHARE}
+    t0 = time.perf_counter()
+    full = None
+    try:
+        full = train_full_width(torch, train, configs, kernels, 0)
+        peak, why = full["peak_bytes"], None
+    except torch.cuda.OutOfMemoryError as exc:  # the cut the phase is told to make
+        peak, why = total, f"out of memory: {str(exc).splitlines()[0]}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    if peak >= TRAIN_MEMORY_SHARE * total:
+        out["cut"] = {"layers": TRAIN_CUT_LAYERS, "peak_at_32_bytes": peak, "reason": why}
+        print(f"phase 11 cut to {TRAIN_CUT_LAYERS} layers: the 32-layer run's peak "
+              f"{peak / 2 ** 30:.2f} GiB is at or above {TRAIN_MEMORY_SHARE:.0%} of "
+              f"{total / 2 ** 30:.2f} GiB ({why or 'measured'})")
+        full = train_full_width(torch, train, configs, kernels, TRAIN_CUT_LAYERS)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["full"] = full
+    out["full"]["peak_share"] = full["peak_bytes"] / total
+    out["full_s"] = time.perf_counter() - t0
+    cfg = configs.get_config("minitron-4b")
+    cfg = dataclasses.replace(cfg, n_layers=full["summary"]["n_layers"])
+    out["profile"] = profile_train_step(torch, models.build_model(cfg), train, steps, optim,
+                                        kernels, cfg.n_layers)
+    out["card_vs_cpu"] = train_card_vs_cpu(torch, models, configs, steps, optim, kernels)
+    out["resume"] = train_resume(torch, train, kernels, ROOT / "build" / "chip_smoke_resume")
+    out["attention"] = attention_train_shape(torch, fops, fref, fkernel)
+    out["scan"] = scan_refuses_autograd(torch, sops)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", type=Path, default=None,
@@ -1669,6 +2058,26 @@ def main(argv=None) -> int:
         print(f"phase 10 fleet {key}: {json.dumps(fleet[key])}")
     print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    trn = phase_train(torch, models, configs, steps, all_kernels, fkernel, fops, fref, sops)
+    full = trn["full"]
+    print(f"phase 11 train minitron-4b, {full['summary']['n_layers']} layers, B 16 x 128: "
+          f"{full['ms_per_step']:.2f} ms per step (steps 2-8), {full['tokens_per_s']:.1f} "
+          f"tokens/s, peak {full['peak_gib']:.2f} GiB ({100 * full['peak_share']:.1f} % of "
+          f"the card), wgmma launches per step {full['wgmma_per_step']:.0f}, matcher "
+          f"launches per slot {json.dumps(full['matcher_launches_per_slot'])} [{smi}]")
+    print(f"phase 11 losses: {json.dumps(full['summary']['losses'])}; step ms: "
+          f"{json.dumps(full['step_ms'])}")
+    prof = trn["profile"]
+    print(f"phase 11 one profiled train step: device busy {prof['device_busy_ms']:.2f} ms of "
+          f"{prof['unprofiled_step_ms']:.2f} ms ({100 * prof['busy_share_of_unprofiled_step']:.1f} "
+          f"%), {prof['device_launches']} launches, wgmma {prof['match_ms']:.3f} ms in "
+          f"{prof['match_count']} launches; spans (events) {json.dumps(prof['spans'])}; "
+          f"top {json.dumps(prof['top'])}")
+    for key in ("card_vs_cpu", "resume", "attention", "scan"):
+        print(f"phase 11 {key}: {json.dumps(trn[key])}")
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -1777,6 +2186,12 @@ def main(argv=None) -> int:
         "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
         "library_ms": pre["library_ms"], "shape": pre["shape"],
         "occupancy": pre["occupancy"], "sass": sass,
+        "train": {**{k: trn["attention"][k] for k in (
+            "shape", "ms", "forward_ms", "backward_ms", "forward_backward_ms", "plain_ms",
+            "bound_ms", "bound_by", "backward_bound_ms", "backward_bound_by", "library_ms",
+            "library_forward_backward_ms", "forward_err_of_scale", "grads_bit_equal")},
+            "launches": full["launches"]["flash_attention_wgmma"],
+            "launches_per_step": full["wgmma_per_step"]},
     })
     sc = lm_kres["mamba1_scan"]
     pre, dec = sc["prefill_bf16"], sc["decode_bf16"]
@@ -1808,7 +2223,8 @@ def main(argv=None) -> int:
             "parity": parity, "lm_build_s": lm_build_s, "wgmma_sass": sass,
             "scan_ptxas": scan_regs, "decode_ptxas": decode_regs, "simt_ptxas": simt_regs,
             "lm_kernels": lm_kres,
-            "serve": serve_res, "lm_parity": lm_parity, "fleet": fleet}, indent=1))
+            "serve": serve_res, "lm_parity": lm_parity, "fleet": fleet, "train": trn},
+            indent=1))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

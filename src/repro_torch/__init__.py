@@ -1,12 +1,15 @@
-"""PyTorch / CUDA port of the Cocktail scheduler and its LM serving path
-(``repro`` is the JAX reference it is held against). Imports torch and never
-jax.
+"""PyTorch / CUDA port of the Cocktail scheduler and its LM training and
+serving paths (``repro`` is the JAX reference it is held against). Imports
+torch and never jax.
 
-  repro_torch.core     -- the scheduler: types, sampler, solvers, step/run
-  repro_torch.kernels  -- hand-written CUDA kernels with plain versions
-  repro_torch.configs  -- ported architecture configs (minitron-4b, falcon-mamba-7b)
-  repro_torch.models   -- build_model: dense transformer and Mamba-1 LMs
-  repro_torch.launch   -- serve / prefill steps and the serving entry point
-  repro_torch.bridge   -- numpy <-> port state and LM parameters, for tests
+  repro_torch.core       -- the scheduler: types, sampler, solvers, step/run, fleets
+  repro_torch.kernels    -- hand-written CUDA kernels with plain versions
+  repro_torch.configs    -- ported architecture configs (minitron-4b, falcon-mamba-7b)
+  repro_torch.models     -- build_model: dense transformer and Mamba-1 LMs, their loss
+  repro_torch.data       -- non-IID CU sources and the decision -> batch sampler
+  repro_torch.optim      -- AdamW, schedules, gradient compression
+  repro_torch.checkpoint -- atomic snapshots and auto-resume
+  repro_torch.launch     -- train / serve / prefill steps, the train and serve entry points
+  repro_torch.bridge     -- numpy <-> port state, LM parameters and AdamW state, for tests
 """
 from . import core, kernels  # noqa: F401

@@ -21,7 +21,10 @@ convert the same way: a (K, 2) array of JAX keys gives K run seeds, and
 ``to_numpy`` is the inverse (seeds come back as an int64 array).
 
 ``lm_params_from_numpy`` builds a port language model from the JAX
-package's parameter tree (``model.init(key)`` as numpy).
+package's parameter tree (``model.init(key)`` as numpy);
+``adamw_state_from_numpy`` builds the port's ``AdamWState`` from the JAX
+package's (step, m, v with m and v nested like the parameters), by the
+same name map, and ``adamw_state_to_numpy`` is its inverse.
 """
 from __future__ import annotations
 
@@ -120,6 +123,50 @@ def lm_params_from_numpy(cfg, tree: Mapping[str, Any], device: str | torch.devic
                 raise ValueError(f"{name}: JAX shape {value.shape}, port shape {tuple(p.shape)}")
             p.copy_(torch.as_tensor(value.astype(np.float32)))
     return model
+
+
+def adamw_state_from_numpy(model, state: Any, device: str | torch.device):
+    """The port's ``AdamWState`` for the parameters of ``model`` from a JAX
+    ``AdamWState`` of numpy arrays (or a dict with ``step``, ``m``, ``v``);
+    m and v are nested like the JAX parameter tree and land under the
+    port's parameter names. Raises if a name is missing on either side or a
+    shape differs."""
+    from .optim import AdamWState  # the scheduler's users need no optimizer code
+
+    get = state.get if isinstance(state, Mapping) else lambda k: getattr(state, k)
+    params = dict(model.named_parameters())
+    moments = {}
+    for key in ("m", "v"):
+        given = _flat_names(get(key))
+        if set(given) != set(params):
+            raise KeyError(f"{key}: names differ: only in the JAX state "
+                           f"{sorted(set(given) - set(params))}, only in the port "
+                           f"{sorted(set(params) - set(given))}")
+        moments[key] = {}
+        for name, p in params.items():
+            value = np.asarray(given[name], np.float32)
+            if value.shape != tuple(p.shape):
+                raise ValueError(f"{key}.{name}: JAX shape {value.shape}, port shape "
+                                 f"{tuple(p.shape)}")
+            moments[key][name] = torch.as_tensor(value.copy(), device=device)
+    step = torch.as_tensor(np.asarray(get("step")).astype(np.int32), device=device)
+    return AdamWState(step=step, m=moments["m"], v=moments["v"])
+
+
+def adamw_state_to_numpy(state) -> dict:
+    """{"step", "m", "v"} of numpy arrays, m and v nested like the JAX
+    parameter tree (the inverse of ``adamw_state_from_numpy``)."""
+    def nest(flat: Mapping[str, torch.Tensor]) -> dict:
+        out: dict = {}
+        for name, t in flat.items():
+            *path, leaf = name.split(".")
+            node = out
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = t.detach().cpu().numpy()
+        return out
+
+    return {"step": state.step.detach().cpu().numpy(), "m": nest(state.m), "v": nest(state.v)}
 
 
 def to_numpy(obj: Any):

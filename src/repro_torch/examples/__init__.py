@@ -1,10 +1,11 @@
-"""Runnable examples of the port's fleet scheduler, counterparts of the
-JAX package's ``examples/*.py``. Each runs on the CUDA card unless given
-``--device cpu``; ``COCKTAIL_EXAMPLE_SLOTS`` sets the number of slots:
+"""Runnable examples of the port, counterparts of the JAX package's
+``examples/*.py``. Each runs on the CUDA card unless given ``--device cpu``;
+``COCKTAIL_EXAMPLE_SLOTS`` sets the number of slots of the fleet examples:
 
     PYTHONPATH=src python -m repro_torch.examples.fleet_multi_slice [--device cpu]
     PYTHONPATH=src python -m repro_torch.examples.ragged_fleet [--device cpu]
     PYTHONPATH=src python -m repro_torch.examples.mixed_policy_fleet [--device cpu]
+    PYTHONPATH=src python -m repro_torch.examples.train_lm_cocktail [--device cpu]
 """
 import argparse
 import os

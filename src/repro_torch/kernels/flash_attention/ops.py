@@ -11,6 +11,16 @@ CPU tensors it runs ``attention_chunked``, and for one query row
 package does off the TPU. ``"kernel"``, ``"chunked"`` and
 ``"ref"`` force one path; the kernel raises on a CPU tensor. There is no
 fallback: on a CUDA tensor the kernel launches or raises.
+
+Gradients: the kernel route is a ``torch.autograd.Function``
+(``KernelAttention``), the counterpart of the ``custom_vjp`` of
+``repro.kernels.flash_attention.kernel.flash_attention_pallas``: the
+forward launches the kernel, the backward recomputes through
+``attention_chunked`` and differentiates that (the JAX package has no
+backward kernel either). The kernel route takes the Function only when
+autograd records the call; otherwise it launches the kernel directly, so
+serving's launches are those of the kernel alone. The plain versions are
+differentiated by autograd as they stand.
 """
 from __future__ import annotations
 
@@ -84,6 +94,29 @@ def attention_chunked(q, k, v, q_pos, kv_pos, spec: AttnSpec, kv_valid=None,
     return out
 
 
+class KernelAttention(torch.autograd.Function):
+    """Attention on the CUDA kernel, differentiable: the backward recomputes
+    the forward through ``attention_chunked`` with autograd and returns its
+    dq, dk and dv (bit-equal to autograd through ``attention_chunked`` on the
+    same inputs), none for the positions and the mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, kv_valid, spec, scale):
+        ctx.spec, ctx.scale = spec, scale
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, kv_valid)
+        return kernel.flash_attention_cuda(q, k, v, q_pos, kv_pos, spec,
+                                           kv_valid=kv_valid, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, q_pos, kv_pos, kv_valid = ctx.saved_tensors
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            out = attention_chunked(q, k, v, q_pos, kv_pos, ctx.spec, kv_valid, ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q, k, v, q_pos, kv_pos, spec: AttnSpec, kv_valid=None,
                     scale: Optional[float] = None, impl: str = "auto",
                     q_chunk: int = 1024, kv_chunk: int = 1024) -> torch.Tensor:
@@ -95,6 +128,8 @@ def flash_attention(q, k, v, q_pos, kv_pos, spec: AttnSpec, kv_valid=None,
     if impl == "auto":
         impl = "kernel" if q.is_cuda else "chunked"
     if impl == "kernel":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            return KernelAttention.apply(q, k, v, q_pos, kv_pos, kv_valid, spec, scale)
         return kernel.flash_attention_cuda(q, k, v, q_pos, kv_pos, spec,
                                            kv_valid=kv_valid, scale=scale)
     if impl == "chunked" and q.shape[1] == 1:

@@ -7,6 +7,11 @@ for CUDA tensors -- prefill and decode (S = 1, with h0) alike, as the JAX
 package runs its Pallas kernel on a TPU -- and ``mamba1_scan_chunked`` for
 CPU tensors. ``"kernel"``, ``"chunked"`` and ``"ref"`` force one path; the
 kernel raises on a CPU tensor. There is no fallback.
+
+Gradients: the kernel has no backward (nor has the Pallas scan), so the
+kernel route raises when autograd records the call; it never falls back to
+the chunked version unasked. The plain versions are differentiated by
+autograd, as JAX differentiates ``mamba1_scan_chunked`` off the TPU.
 """
 from __future__ import annotations
 
@@ -72,6 +77,12 @@ def mamba1_scan(x, dt, a, b, c, h0=None, chunk: int = 256, impl: str = "auto"):
     if impl == "auto":
         impl = "kernel" if x.is_cuda else "chunked"
     if impl == "kernel":
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in (x, dt, a, b, c, h0)):
+            raise NotImplementedError(
+                "mamba1_scan: the CUDA kernel has no backward yet, so the scan cannot be "
+                "trained on the card (see ROADMAP.md, Queue 2); pass impl='chunked' to "
+                "differentiate the plain version")
         return kernel.mamba1_scan_cuda(x, dt, a, b, c, h0)
     if impl == "chunked":
         return mamba1_scan_chunked(x, dt, a, b, c, h0, chunk)

@@ -1,2 +1,2 @@
-"""Launchers of the port: step builders (``steps``) and the serving entry point
-(``serve``)."""
+"""Launchers of the port: the step functions (``steps``) and the training and
+serving entry points (``train``, ``serve``)."""

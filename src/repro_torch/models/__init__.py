@@ -7,7 +7,11 @@ Ported families: ``dense`` (``transformer.DenseLM``) and ``ssm``
 raise ``NotImplementedError``; ROADMAP.md lists them. Entry points run on
 the CUDA card unless the caller names another device.
 
-Batch dict convention: ``tokens`` (B, S) integer token ids.
+Batch dict convention:
+  tokens  (B, S) integer token ids      always
+  labels  (B, S) integer, -1 = masked   training (``loss``)
+  weights (B,) float32                  optional Cocktail per-sample weights
+                                        (the |D_j| aggregation of eq. 15)
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from . import ssm, transformer
+from .layers import weighted_cross_entropy
 
 # family -> (module with init_params / forward / init_cache / decode_step, model class)
 _FAMILIES = {"dense": (transformer, transformer.DenseLM), "ssm": (ssm, ssm.MambaLM)}
@@ -30,6 +35,7 @@ class ModelApi:
     device: torch.device
     init: Callable[..., nn.Module]  # (seed, dtype=None) -> model with drawn weights
     forward: Callable[..., torch.Tensor]  # (model, batch) -> logits (B, S, V)
+    loss: Callable[..., tuple]  # (model, batch) -> (loss, {"ce", "tokens"})
     init_cache: Callable[..., Any]  # (batch_size, max_len) -> cache
     decode_step: Callable[..., tuple]  # (model, cache, tokens (B, 1)) -> (logits, cache)
 
@@ -56,6 +62,17 @@ def new_model(cfg: ArchConfig, device, dtype: Optional[torch.dtype] = None) -> n
     return _family(cfg)[1](cfg, device=device, dtype=dtype)
 
 
+def _lm_loss(fwd):
+    """(model, batch) -> (weighted mean CE, {"ce", "tokens"}): the
+    counterpart of the JAX package's ``_lm_loss`` (its families have no
+    prefix positions)."""
+    def loss_fn(model, batch):
+        loss, denom = weighted_cross_entropy(fwd(model, batch), batch["labels"],
+                                             batch.get("weights"))
+        return loss, {"ce": loss, "tokens": denom}
+    return loss_fn
+
+
 def build_model(cfg: ArchConfig, impl: str = "auto", device=None) -> ModelApi:
     """The model API of ``cfg`` on ``device`` (CUDA by default). ``impl``
     picks the attention / scan path (``auto``: the CUDA kernels on the card,
@@ -71,9 +88,11 @@ def build_model(cfg: ArchConfig, impl: str = "auto", device=None) -> ModelApi:
         gen.manual_seed(seed)
         return mod.init_params(cfg, new_model(cfg, dev, dtype), gen)
 
+    def forward(model, batch):
+        return mod.forward(cfg, model, batch["tokens"], impl=impl)
+
     return ModelApi(
-        cfg=cfg, device=dev, init=init,
-        forward=lambda model, batch: mod.forward(cfg, model, batch["tokens"], impl=impl),
+        cfg=cfg, device=dev, init=init, forward=forward, loss=_lm_loss(forward),
         init_cache=lambda bs, max_len, **kw: mod.init_cache(cfg, bs, max_len, device=dev, **kw),
         decode_step=lambda model, cache, tokens: mod.decode_step(cfg, model, cache, tokens,
                                                                  impl=impl),

@@ -3,10 +3,11 @@ counterpart of ``repro.models.layers``."""
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 
 def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -17,11 +18,47 @@ def compute_dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
-def layer_params(blocks, layer: int, dtype: torch.dtype) -> dict[str, torch.Tensor]:
-    """One layer's slice of a stacked (L, ...) parameter dict, in ``dtype``
-    (the JAX package casts the parameters to the compute type on every
-    call; a model stored in that type is not cast again)."""
-    return {k: cast(v[layer], dtype) for k, v in blocks.items()}
+def unbind_layers(blocks) -> list[dict[str, torch.Tensor]]:
+    """Per-layer views of a stacked (L, ...) parameter dict, each leaf
+    unbound once: under autograd, the L views' gradients meet in one stacked
+    gradient, where selecting ``v[layer]`` per layer would give each layer's
+    backward a whole-stack zero gradient."""
+    per_leaf = {k: v.unbind(0) for k, v in blocks.items()}
+    n = len(next(iter(per_leaf.values())))
+    return [{k: views[layer] for k, views in per_leaf.items()} for layer in range(n)]
+
+
+def cast_params(p: dict[str, torch.Tensor], dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    """One layer's parameters in ``dtype`` (the JAX package casts the
+    parameters to the compute type on every call; a model stored in that
+    type is not cast again). Cast per layer, inside the layer's recompute
+    region under remat, so no whole-model copy in ``dtype`` is held; the
+    cast's backward gives the float32 gradient of the cast parameters."""
+    return {k: cast(v, dtype) for k, v in p.items()}
+
+
+def apply_layers(cfg, model, x: torch.Tensor, layer_fn: Callable) -> torch.Tensor:
+    """x through every layer of ``model.blocks``: ``layer_fn(x, p, layer)``
+    gets the layer's parameters cast to the compute type. When the forward
+    is recorded for a backward and ``cfg.remat`` is set, each layer is
+    recomputed in the backward (``torch.utils.checkpoint``, as the JAX
+    package's ``jax.checkpoint`` of the scanned body), the cast included."""
+    cdt = compute_dtype(cfg)
+    # recorded for a backward: grad mode on and a parameter that requires
+    # grad (serving models have none)
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        p.requires_grad for p in model.parameters())
+    for layer, p in enumerate(unbind_layers(model.blocks)):
+        names = tuple(p)
+
+        def run(x, *leaves, layer=layer, names=names):
+            return layer_fn(x, cast_params(dict(zip(names, leaves)), cdt), layer)
+
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(run, x, *p.values(), use_reentrant=False)
+        else:
+            x = run(x, *p.values())
+    return x
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -75,3 +112,25 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], in_axis: int = 0,
 
 def embed_init(gen: torch.Generator, shape: Sequence[int], device=None) -> torch.Tensor:
     return _normal(shape, gen, device) * 0.02
+
+
+def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                           weights: Optional[torch.Tensor] = None,
+                           logit_softcap: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token CE in float32 with optional per-SAMPLE weights (the
+    Cocktail |D_j| aggregation of eq. 15 folds into these weights). Returns
+    (loss, n_tokens); labels < 0 are masked out."""
+    if logit_softcap > 0:
+        logits = softcap(logits, logit_softcap)
+    logits = logits.float()
+    valid = labels >= 0
+    lab = torch.clamp(labels, min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+    nll = (lse - ll) * valid
+    if weights is not None:
+        nll = nll * weights[:, None]
+        denom = torch.sum(valid * weights[:, None])
+    else:
+        denom = torch.sum(valid).float()
+    return torch.sum(nll) / torch.clamp(denom, min=1.0), denom

@@ -147,14 +147,13 @@ def _logits(cfg: ArchConfig, model: MambaLM, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, head)
 
 
-@torch.no_grad()
 def forward(cfg: ArchConfig, model: MambaLM, tokens: torch.Tensor,
             impl: str = "auto") -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V)."""
-    cdt = L.compute_dtype(cfg)
-    x = L.cast(model.embed[tokens.long()], cdt)
-    for layer in range(cfg.n_layers):
-        x, _ = mamba1_block(cfg, x, L.layer_params(model.blocks, layer, cdt), impl=impl)
+    """tokens (B, S) -> logits (B, S, V). Differentiable as the dense
+    ``forward`` is; on the card the scan's kernel has no backward yet, so a
+    recorded forward raises there (``kernels/mamba_scan/ops.py``)."""
+    x = L.cast(model.embed[tokens.long()], L.compute_dtype(cfg))
+    x = L.apply_layers(cfg, model, x, lambda x, p, layer: mamba1_block(cfg, x, p, impl=impl)[0])
     return _logits(cfg, model, x)
 
 
@@ -177,10 +176,9 @@ def decode_step(cfg: ArchConfig, model: MambaLM, cache: dict, tokens: torch.Tens
     place and returned."""
     cdt = L.compute_dtype(cfg)
     x = L.cast(model.embed[tokens.long()], cdt)
-    for layer in range(cfg.n_layers):
+    for layer, p in enumerate(L.unbind_layers(model.blocks)):
         state = {"conv": cache["conv"][layer], "h": cache["h"][layer]}
-        x, new = mamba1_block(cfg, x, L.layer_params(model.blocks, layer, cdt), state=state,
-                              impl=impl)
+        x, new = mamba1_block(cfg, x, L.cast_params(p, cdt), state=state, impl=impl)
         cache["conv"][layer] = new["conv"]
         cache["h"][layer] = new["h"]
     cache["pos"] = int(cache["pos"]) + 1

@@ -9,7 +9,11 @@ scaling, tied heads, sliding windows and alternating local / global layers.
   * ``DenseLM`` keeps the JAX package's parameter tree: every per-layer
     parameter is stacked on a leading L axis under its JAX name
     (``blocks.wq`` is (L, D, H, hd)), so weights bridge name for name. The
-    layers run in a Python loop.
+    layers run in a Python loop (``layers.apply_layers``: each stacked leaf
+    unbound once, the cast per layer, per-layer recompute under remat).
+  * ``forward`` is differentiable (training, ``launch/steps.py``); the
+    parameters are created with ``requires_grad=False`` and a trainer turns
+    them on. ``decode_step`` runs under ``torch.no_grad``.
   * Attention goes through ``flash_attention`` (the CUDA kernel on the card,
     prefill and decode alike).
   * Decode keeps ring-buffer KV caches for windowed layers (W slots) and full
@@ -182,18 +186,17 @@ def _logits(cfg: ArchConfig, model: DenseLM, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-@torch.no_grad()
 def forward(cfg: ArchConfig, model: DenseLM, tokens: torch.Tensor,
             impl: str = "auto") -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V)."""
-    cdt = L.compute_dtype(cfg)
+    """tokens (B, S) -> logits (B, S, V). Differentiable: recorded for a
+    backward when a parameter requires grad (then with per-layer recompute
+    under ``cfg.remat``); serving calls it under ``torch.no_grad``."""
     x = _embed(cfg, model, tokens)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     specs = attn_specs(cfg)
-    for layer in range(cfg.n_layers):
-        x = block_apply(cfg, x, L.layer_params(model.blocks, layer, cdt), positions,
-                        specs[layer % len(specs)], impl=impl)
+    x = L.apply_layers(cfg, model, x, lambda x, p, layer: block_apply(
+        cfg, x, p, positions, specs[layer % len(specs)], impl=impl))
     return _logits(cfg, model, x)
 
 
@@ -235,10 +238,10 @@ def decode_step(cfg: ArchConfig, model: DenseLM, cache: dict, tokens: torch.Tens
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     specs = attn_specs(cfg)
     group = len(specs)
-    for layer in range(cfg.n_layers):
+    for layer, p in enumerate(L.unbind_layers(model.blocks)):
         i, li = layer % group, layer // group
         spec = specs[i]
-        p = L.layer_params(model.blocks, layer, cdt)
+        p = L.cast_params(p, cdt)
         kc, vc, pc = cache[f"k{i}"][li], cache[f"v{i}"][li], cache[f"kv_pos{i}"][li]
         slots = kc.shape[1]
         slot = pos % slots if spec.window > 0 else min(pos, slots - 1)

@@ -744,3 +744,83 @@ def test_fleet_slot_on_card_matches_cpu(card, fleet):
             err = float((a[k].double().cpu() - b[k].double()).abs().max()) / scale
             assert err <= 1e-5, f"{name} slice {k}: {err:.3e} of scale"
     assert float(dec_p.alpha.sum()) > 0
+
+
+# The attention Function (the kernel route under autograd) at train-like
+# shapes: bf16 on the wgmma kernel, float32 on the SIMT kernel.
+TRAIN_ATTN_CASES = [
+    (2, 128, 8, 2, 128, torch.bfloat16, AttnSpec(causal=True)),
+    (2, 64, 4, 1, 64, torch.bfloat16, AttnSpec(causal=True, window=32)),
+    (2, 32, 4, 2, 16, torch.float32, AttnSpec(causal=True)),
+]
+
+
+@pytest.mark.parametrize("case", TRAIN_ATTN_CASES, ids=str)
+def test_attention_function_forward_is_the_kernel_and_grads_the_recompute(card, case):
+    """Under autograd the kernel route launches the kernel once (its output
+    bit-equal to the kernel called directly) and its dq, dk, dv are
+    bit-equal to autograd through ``attention_chunked``."""
+    b, s, h, hkv, hd, dtype, spec = case
+    rng = np.random.default_rng(3)
+    q, k, v, g = (torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=card).to(dtype)
+                  for sh in ((b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd), (b, s, h, hd)))
+    pos = torch.arange(s, dtype=torch.int32, device=card).expand(b, s).contiguous()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = fkernel.launches["flash_attention"]
+    out = fops.flash_attention(*leaves, pos, pos, spec)
+    assert fkernel.launches["flash_attention"] == before + 1 and out.requires_grad
+    assert torch.equal(out.detach(), fkernel.flash_attention_cuda(q, k, v, pos, pos, spec))
+    grads = torch.autograd.grad(out, leaves, g)
+    plain_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fops.attention_chunked(*plain_leaves, pos, pos, spec),
+                               plain_leaves, g)
+    assert fkernel.launches["flash_attention"] == before + 2  # the direct call only
+    for a, c in zip(grads, want):
+        assert torch.equal(a, c)
+
+
+def test_scan_kernel_route_raises_under_autograd(card):
+    x = torch.zeros((1, 8, 16), device=card, requires_grad=True)
+    dt, b, c = (torch.zeros(s, device=card) for s in ((1, 8, 16), (1, 8, 4), (1, 8, 4)))
+    a = -torch.ones((16, 4), device=card)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        sops.mamba1_scan(x, dt, a, b, c)
+    with torch.no_grad():  # not recorded: the kernel launches
+        y, _ = sops.mamba1_scan(x, dt, a, b, c)
+    assert y.shape == x.shape
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "falcon-mamba-7b"])
+def test_serving_launches_unchanged_with_trainable_weights(card, arch):
+    """A reduced model on the card: the prefill step and a decode step launch
+    one kernel a layer (attention or scan) whether or not the weights
+    require grad; a recorded forward of the dense model launches the
+    attention kernel once a layer, and its remat backward once more."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.mamba_scan import kernel as skernel
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model
+
+    cfg = reduced(get_config(arch))
+    api = build_model(cfg, device=card)
+    name = "flash_attention" if cfg.family == "dense" else "mamba1_scan"
+    counts = fkernel.launches if cfg.family == "dense" else skernel.launches
+    tokens = torch.zeros((2, 16), dtype=torch.int32, device=card)
+    for trainable in (False, True):
+        model = api.init(0).requires_grad_(trainable)
+        before = counts[name]
+        logits = make_prefill_step(api)(model, {"tokens": tokens})
+        assert counts[name] == before + cfg.n_layers and not logits.requires_grad
+        cache = api.init_cache(2, 4)
+        before = counts[name]
+        make_serve_step(api)(model, cache, tokens[:, :1])
+        assert counts[name] == before + cfg.n_layers
+    if cfg.family == "dense":
+        cfg = dataclasses.replace(cfg, remat=True)
+        api = build_model(cfg, device=card)
+        model = api.init(0).requires_grad_(True)
+        before = counts[name]
+        loss, _ = api.loss(model, {"tokens": tokens, "labels": tokens.long()})
+        assert counts[name] == before + cfg.n_layers
+        torch.autograd.grad(loss, list(model.parameters()))
+        assert counts[name] == before + 2 * cfg.n_layers
