@@ -47,7 +47,9 @@ Phases, each fatal on failure:
      hd 36 / 64 / 80 / 128 / 256, Hkv 1 / 2 / 8 / 32, rows that see no key,
      in bf16 and float32; minitron-4b's 16-token forward and the bf16
      B 4 x 2048 prefills of zamba2-2.7b's and paligemma-3b's attention on
-     the SIMT kernel), check which attention kernel each case launched, and
+     the SIMT kernel; phase 12's bf16 shapes: zamba2-2.7b's hd 80 decode,
+     granite-20b's MQA decode and prefill, whisper-base's cross-attention
+     decode over 1,500 frames), check which attention kernel each case launched, and
      time kernel, plain version and, for attention, torch's
      scaled_dot_product_attention (the bf16 prefill also on the SIMT
      kernel; every SIMT case, and SDPA at the 16-token forward, the serve
@@ -55,15 +57,20 @@ Phases, each fatal on failure:
      graph replay); the scan's decode also as device time per call under
      torch.profiler;
   7. serve minitron-4b at full size through ``repro_torch.launch.serve``
-     (B 4, prompt 16, 32 generated), then check decode against forward,
+     (B 4, prompt 16, 32 generated; ms per decode step from its own loop),
+     then check teacher-forced decode against forward in bf16 and in
+     float32 compute and against the same decode with the plain versions,
      exact launch counts per forward (SIMT attention) and per decode step
      (decode attention), profile the 16-token forward (device busy time and
      the SIMT kernel's share), time a B 4 x 2048 prefill (wgmma attention in all
      32 layers), and time one decode step at B 4 over 32,768 filled cache
      positions against the same step with the plain attention;
   8. the same for falcon-mamba-7b;
-  9. run reduced minitron-4b and falcon-mamba-7b in float32 on the card
-     (kernels) and on the CPU (plain versions) and compare the logits;
+  9. run every architecture (the ten of ``configs.ARCH_IDS``), reduced, in
+     float32 on the card (kernels) and on the CPU (plain versions) with the
+     same weights and compare the logits of a forward and 4 decode steps
+     (1e-5 of scale) with exact launches; an MoE's chosen experts and kept
+     assignments first, equal on both sides;
  10. drive the fleet path (``FleetEngine.from_configs`` / ``from_jobs`` ->
      ``run``) at 1024 x 32 with per-slice rates, costs and budgets: DS and
      L-DS fleets of K = 1 and K = 8 slices over 12 slots (ms per fleet slot
@@ -86,7 +93,19 @@ Phases, each fatal on failure:
      resumed against an uninterrupted 20-step run; the attention Function at
      the train shape (forward against the plain version, gradients bit-equal
      to autograd through it, times beside SDPA's forward and backward); and
-     the scan's CUDA route raising under autograd.
+     the scan's CUDA route raising under autograd;
+ 12. serve each other family at its published widths through
+     ``repro_torch.launch.serve`` as phases 7-8 do (B 4, prompt 16, 32
+     generated; bf16 weights drawn on the card): qwen2.5-32b, gemma2-27b,
+     granite-20b, mixtral-8x7b (24 of 32 layers: all 32 do not fit),
+     zamba2-2.7b, whisper-base (frames encoded into its cross-attention
+     cache first) and paligemma-3b (256 patch embeddings ahead of its
+     forward and prefill); per arch the exact attention launches by kernel
+     per decode step, 16-token forward and B 4 x 2048 prefill, the three
+     decode checks of phase 7 (bf16 against forward at its own limit),
+     ms per decode step, tokens/s, prefill ms, peak memory of the serve run,
+     of the checks and of the prefill, device busy per decode step and
+     attention's share of the forward and the prefill (profiler).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without that last
@@ -843,16 +862,31 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
     # driven path now that decode has its own kernel; the bf16 B 4 x 2048
     # prefills of zamba2-2.7b's attention (H 32 / 32, hd 80) and
     # paligemma-3b's (H 8 / 1, hd 256, a 256-token prefix), which the SIMT
-    # kernel takes (ROADMAP.md Queue 1 item 4); decode at an odd head dim.
+    # kernel takes (ROADMAP.md Queue 2 item 11); the float32 prefill that
+    # paligemma-3b launches (its stream is float32: 256 patches + 2048
+    # tokens); decode at an odd head dim.
     attn_cases += [
         ("forward16_bf16", (4, 16, 16, 32, 8, 128), bf16, AttnSpec(), False),
         ("prefill_hd80_bf16", (4, 2048, 2048, 32, 32, 80), bf16, AttnSpec(), False),
         ("prefill_hd256_bf16", (4, 2048, 2048, 8, 1, 256), bf16, AttnSpec(prefix_len=256), False),
+        ("prefill_hd256_f32", (4, 2304, 2304, 8, 1, 256), f32, AttnSpec(prefix_len=256), False),
         ("decode_hd36_f32", (4, 1, 48, 32, 8, 36), f32, AttnSpec(), True),
+    ]
+    # Phase 12's bf16 attention shapes that no case above holds: zamba2-2.7b's
+    # decode (H 32 / 32, hd 80: the decode kernel's instance padded to 128),
+    # granite-20b's MQA decode and B 4 x 2048 wgmma prefill (48 q heads over
+    # one kv head), whisper-base's cross-attention decode (non-causal over its
+    # 1,500 encoded frames, hd 64).
+    attn_cases += [
+        ("decode_hd80_bf16", (4, 1, 48, 32, 32, 80), bf16, AttnSpec(), True),
+        ("decode_mqa_bf16", (4, 1, 48, 48, 1, 128), bf16, AttnSpec(), True),
+        ("prefill_mqa_bf16", (4, 2048, 2048, 48, 1, 128), bf16, AttnSpec(), False),
+        ("decode_cross_bf16", (4, 1, 1500, 8, 8, 64), bf16, AttnSpec(causal=False), "filled"),
     ]
     # SDPA's device time by graph replay (its event time is host-bound at
     # the short shapes).
-    library_device = ("forward16_bf16", "decode_bf16", "prefill_hd80_bf16", "prefill_hd256_bf16")
+    library_device = ("forward16_bf16", "decode_bf16", "prefill_hd80_bf16", "prefill_hd256_bf16",
+                      "prefill_hd256_f32")
     attn = {}
     for idx, (name, (b, sq, skv, h, hkv, hd), dtype, spec, decode) in enumerate(attn_cases):
         q, k, v, qp, kp, valid = attn_inputs(torch, b, sq, skv, h, hkv, hd, dtype, 100 + idx,
@@ -888,7 +922,7 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
                "route": route, "max_abs_err": err, "err_of_scale": rel, "tol_of_scale": tol,
                "rows_seeing_no_key": n_unseen, "visible_pairs": visible,
                "bound_ms": bound, "bound_by": bound_by}
-        long = skv > 1024  # the 32,768-slot caches
+        long = skv > 1024  # the 32,768-slot caches and 1,500 encoded frames
         if name.startswith(("prefill", "decode", "forward")):
             reps = 10 if name.startswith("prefill") else (20 if long else 200)
             res["ms"] = cuda_ms(torch, lambda: fops.flash_attention(
@@ -1025,12 +1059,30 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
 # Phases 7-8: serve the full-size models
 # --------------------------------------------------------------------------
 
-# Of scale: bf16 teacher-forced decode against the bf16 forward at full size.
-# The two round every layer's activations to bf16 after products of other
-# shapes, 32 or 64 times over; measured on an H100: 2.2e-2 for
-# minitron-4b (relu^2 MLP), 7.0e-3 for falcon-mamba-7b. The float32 reduced
-# models of phase 9 hold the same code to 1e-5.
+# Of scale: at full size, bf16 teacher-forced decode against the bf16
+# forward, and against the same decode with the plain versions. Two bf16
+# routes round every layer's activations after products of other shapes, 32
+# or 64 times over; measured on an H100: 2.1e-2 and 1.9e-2 for minitron-4b
+# (relu^2 MLP); 0 (the same bits) and 4.2e-2 for falcon-mamba-7b. The
+# float32 reduced models of phase 9 hold the same code to 1e-5.
 MODEL_TOL = 5e-2
+# Of scale: the same two bf16 gaps for phase 12's archs. On an H100, with
+# the same weights and tokens (``scripts/bf16_gap.py``), each bf16 route is
+# as far from the float32 forward as from the other: zamba2-2.7b's bf16
+# forward 1.15e-1 and its bf16 decode 1.18e-1 from the float32 forward,
+# decode against forward 8.5e-2 with the kernels and 8.0e-2 with the plain
+# versions, kernels against plain decode 2.7e-2; mixtral-8x7b (24 layers)
+# 6.3e-2 against forward and against the plain decode (an expert choice
+# flips); qwen2.5-32b 3.5e-2 / 3.0e-2; cuBLAS's reduced-precision bf16
+# reduction on or off gives the same bits. So the gap is bf16 rounding
+# carried through depth, not a kernel (phase 6 holds each kernel at these
+# archs' shapes); the limit is 1.8 times the largest reading.
+FAMILY_BF16_TOL = 0.15
+# Of scale: decode against forward at full width in float32 compute (the
+# bf16 weights taken to float32 in every product, float32 caches, the
+# kernels' float32 instances), as the JAX package's smoke tests hold it
+# (rtol = atol = 2e-3 in float32).
+F32_DECODE_TOL = 2e-3
 
 
 def reset_counts(*kernels) -> None:
@@ -1087,20 +1139,91 @@ def profile_window(torch, fn, match: str = "") -> dict:
     return out
 
 
+def stub_inputs(torch, cfg, batch: int, seed: int, device: str = "cuda") -> dict:
+    """The stub frontend's input of an encoder-decoder (``frames``) or a VLM
+    (``patches``), drawn on ``device`` from a generator seeded with
+    ``seed``; {} for the other families."""
+    shape = {"encdec": ("frames", cfg.enc_ctx), "vlm": ("patches", cfg.n_img_tokens)}
+    if cfg.family not in shape:
+        return {}
+    name, rows = shape[cfg.family]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {name: torch.randn((batch, rows, cfg.d_model), generator=gen, device=device)}
+
+
+def decode_tokens(cfg, prompt):
+    """The tokens a decode check decodes: the prompt, or an MoE's first 8 of
+    batch row 0. An MoE forward drops assignments past an expert's capacity
+    and decode (B tokens a call) none at B 4; at B 1 x 8 no expert can take
+    more than its 8 slots (``reference_forward`` checks it)."""
+    return prompt[:1, :8] if cfg.family == "moe" else prompt
+
+
+def reference_forward(cfg, api, model, tokens, extra):
+    """The forward that a teacher-forced decode of ``tokens`` must reproduce.
+    A VLM decodes plain causal (no image prefix in the cache), as its
+    backbone's forward without patches computes."""
+    from repro_torch.models import moe, transformer
+    if cfg.family == "vlm":
+        return transformer.forward(cfg, model, tokens)
+    with moe.recording_routing() as log:
+        full = api.forward(model, {"tokens": tokens, **extra})
+    if not all(bool(kept.all()) for _, kept in log):
+        fail(f"{cfg.name}: the forward of {tuple(tokens.shape)} tokens dropped an assignment")
+    return full
+
+
+def teacher_forced(torch, cfg, api, model, tokens, extra, kernels, step_counts: dict,
+                   cache_len: int):
+    """(logits (B, S, V), the last step's launches) of decoding ``tokens`` one
+    at a time from a fresh cache, with exact launches a step; an
+    encoder-decoder's cache first takes ``prefill_cross`` of the frames."""
+    from repro_torch.models import encdec
+    cache = api.init_cache(tokens.shape[0], cache_len)
+    if cfg.family == "encdec":
+        cache = encdec.prefill_cross(cfg, model, extra["frames"], cache)
+    outs = []
+    for t in range(tokens.shape[1]):
+        reset_counts(*kernels)
+        logits, cache = api.decode_step(model, cache, tokens[:, t:t + 1])
+        launched = expect_counts(kernels, f"{cfg.name} decode step ({cfg.compute_dtype})",
+                                 step_counts)
+        outs.append(logits[:, 0])
+    dec = torch.stack(outs, dim=1)
+    if not bool(torch.isfinite(dec).all()):
+        fail(f"{cfg.name}: decode logits ({cfg.compute_dtype}) not finite")
+    return dec, launched
+
+
+def logit_gap(got, want) -> dict:
+    """Max abs error, the same over the reference's scale, argmax agreement."""
+    err, rel = rel_err(got, want)
+    return {"err_of_scale": rel, "max_abs": err, "shape": list(got.shape[:2]),
+            "argmax_agreement": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+            "logit_scale": float(want.float().abs().max())}
+
+
 def phase_serve(torch, arch, serve, steps, models, get_config, kernels, counts,
-                forward_kernel: str, long_cache=False):
-    """Serve ``arch`` at full size through the user's entry point, then
-    check decode against forward with exact launch counts, profile the
-    16-token forward (device busy time and the share of the kernels whose
-    name holds ``forward_kernel``) and time a B 4 x 2048 prefill. ``counts``
-    holds the exact launches of one decode step ("step"; the serve run makes
-    48), of the 16-token forward ("forward") and of the prefill ("prefill").
-    ``long_cache`` adds ``phase_long_cache``."""
+                forward_kernel: str, long_cache=False, layers: int = 0,
+                decode_tol: float = MODEL_TOL):
+    """Serve ``arch`` at full width through the user's entry point (the
+    first ``layers`` layers where given) and time its decode steps, then
+    check decode with exact launch counts, profile the 16-token forward
+    (device busy time and the share of the kernels whose name holds
+    ``forward_kernel``) and two decode steps, and time a B 4 x 2048
+    prefill (a VLM's 256 patches ahead of it), profiled with the same
+    kernels' share. ``counts`` holds the exact launches of one decode step
+    ("step"; the serve run makes 48), of the 16-token forward ("forward"),
+    of the prefill ("prefill") and, where given, of the serve run's set-up
+    ("serve_extra": an encoder-decoder's ``prefill_cross``). Teacher-forced
+    decode must reproduce the forward, and the same decode with the plain
+    versions, within ``decode_tol`` of scale in bf16, and the forward within
+    ``F32_DECODE_TOL`` in float32 compute (same weights, same launches a
+    step). ``long_cache`` adds ``phase_long_cache``."""
     import gc
-    cfg = get_config(arch)
     batch, prompt_len, gen = 4, 16, 32
     argv = ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt_len),
-            "--gen", str(gen)]
+            "--gen", str(gen)] + (["--layers", str(layers)] if layers else [])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(*kernels)
@@ -1108,63 +1231,86 @@ def phase_serve(torch, arch, serve, steps, models, get_config, kernels, counts,
     summary = serve.main(argv)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    counts = {**counts, "serve": {k: n * (prompt_len + gen) for k, n in counts["step"].items()}}
+    cfg = dataclasses.replace(get_config(arch), n_layers=summary["n_layers"])
+    serve_counts = {k: n * (prompt_len + gen) for k, n in counts["step"].items()}
+    for k, n in counts.get("serve_extra", {}).items():
+        serve_counts[k] = serve_counts.get(k, 0) + n
+    counts = {**counts, "serve": serve_counts}
     launched = expect_counts(kernels, f"{arch} serve", counts["serve"])
-    out = {"serve_main": summary, "serve_main_s": serve_s, "serve_launches": launched,
+    # The serve run's own loop (teacher-forced prompt, then greedy tokens
+    # copied to the host one step at a time) on the host clock.
+    out = {"n_layers": cfg.n_layers, "serve_main": summary, "serve_main_s": serve_s,
+           "serve_launches": launched,
+           "ms_per_decode_step": summary["decode_s"] / (prompt_len + gen) * 1e3,
+           "tokens_per_s": batch * (prompt_len + gen) / summary["decode_s"],
            "serve_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     gc.collect()
     torch.cuda.empty_cache()
 
+    torch.cuda.reset_peak_memory_stats()
     api = models.build_model(cfg)
     t0 = time.perf_counter()
     model = api.init(0, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     out["init_s"] = time.perf_counter() - t0
+    out["weights_gb"] = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
     rng = np.random.default_rng(1)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
                              dtype=torch.int32, device="cuda")
+    extra = stub_inputs(torch, cfg, batch, seed=2)
     reset_counts(*kernels)
-    full = api.forward(model, {"tokens": prompt})
+    full = api.forward(model, {"tokens": prompt, **extra})
     torch.cuda.synchronize()
     out["forward_launches"] = expect_counts(kernels, f"{arch} forward of {prompt_len} tokens",
                                             counts["forward"])
-    prof = profile_window(torch, lambda: api.forward(model, {"tokens": prompt}),
+    want_rows = prompt_len + (cfg.n_img_tokens if cfg.family == "vlm" else 0)
+    if full.shape != (batch, want_rows, cfg.vocab_size) or not bool(torch.isfinite(full).all()):
+        fail(f"{arch}: forward logits {tuple(full.shape)} not finite of the expected shape")
+    del full
+    prof = profile_window(torch, lambda: api.forward(model, {"tokens": prompt, **extra}),
                           match=forward_kernel)
     out["forward_profile"] = {**prof, "kernel": forward_kernel,
                               "kernel_share": prof["match_ms"] / prof["device_busy_ms"]}
-    cache = api.init_cache(batch, prompt_len + gen)
-    outs = []
-    for t in range(prompt_len):
-        reset_counts(*kernels)
-        logits, cache = api.decode_step(model, cache, prompt[:, t:t + 1])
-        out["step_launches"] = expect_counts(kernels, f"{arch} decode step", counts["step"])
-        outs.append(logits[:, 0])
-    dec = torch.stack(outs, dim=1)
-    if full.shape != (batch, prompt_len, cfg.vocab_size) or not bool(torch.isfinite(full).all()) \
-            or not bool(torch.isfinite(dec).all()):
-        fail(f"{arch}: forward logits {tuple(full.shape)} not finite of the expected shape")
-    err, rel = rel_err(dec, full)
-    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
-    if rel > MODEL_TOL:
-        fail(f"{arch}: teacher-forced decode is {rel:.3e} of scale from the forward "
-             f"(limit {MODEL_TOL})")
-    out.update({"decode_vs_forward_err_of_scale": rel, "decode_vs_forward_max_abs": err,
-                "argmax_agreement": agree, "logit_scale": float(full.float().abs().max())})
 
-    # Serving loop timed alone (teacher-forced prompt, then greedy tokens).
+    # Decode in bf16 against the forward and against the same decode with the
+    # plain versions (impl="chunked", no launch; every product at the same
+    # shapes), both held to ``decode_tol``; in float32 compute against the
+    # forward, held to F32_DECODE_TOL.
+    tokens, cache_len = decode_tokens(cfg, prompt), prompt_len + gen
+    dec, out["step_launches"] = teacher_forced(torch, cfg, api, model, tokens, extra, kernels,
+                                               counts["step"], cache_len)
+    bf = logit_gap(dec, reference_forward(cfg, api, model, tokens, extra))
+    out.update({"decode_vs_forward_err_of_scale": bf["err_of_scale"],
+                "decode_vs_forward_max_abs": bf["max_abs"], "decode_vs_forward_shape": bf["shape"],
+                "argmax_agreement": bf["argmax_agreement"], "logit_scale": bf["logit_scale"],
+                "decode_tol": decode_tol})
+    if bf["err_of_scale"] > decode_tol:
+        fail(f"{arch}: teacher-forced decode is {bf['err_of_scale']:.3e} of scale from the "
+             f"forward (limit {decode_tol})")
+    plain, _ = teacher_forced(torch, cfg, models.build_model(cfg, impl="chunked"), model,
+                              tokens, extra, kernels, {}, cache_len)
+    out["decode_vs_plain_decode"] = pg = logit_gap(dec, plain)
+    if pg["err_of_scale"] > decode_tol:
+        fail(f"{arch}: decode with the kernels is {pg['err_of_scale']:.3e} of scale from decode "
+             f"with the plain versions (limit {decode_tol})")
+    del dec, plain
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    api32 = models.build_model(cfg32)
+    dec32, _ = teacher_forced(torch, cfg32, api32, model, tokens, extra, kernels, counts["step"],
+                              cache_len)
+    out["decode_vs_forward_f32"] = f32 = logit_gap(
+        dec32, reference_forward(cfg32, api32, model, tokens, extra))
+    if f32["err_of_scale"] > F32_DECODE_TOL:
+        fail(f"{arch}: teacher-forced decode in float32 is {f32['err_of_scale']:.3e} of "
+             f"scale from the forward (limit {F32_DECODE_TOL})")
+    del dec32
+    out["check_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
     step = steps.make_serve_step(api)
-    cache = api.init_cache(batch, prompt_len + gen)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tok = None
-    for t in range(prompt_len):
-        tok, cache = step(model, cache, prompt[:, t:t + 1])
-    for _ in range(gen):
-        tok, cache = step(model, cache, tok)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    out["tokens_per_s"] = batch * (prompt_len + gen) / dt
-    out["ms_per_decode_step"] = dt / (prompt_len + gen) * 1e3
+    cache = api.init_cache(batch, cache_len)
+    if cfg.family == "encdec":
+        cache = models.encdec.prefill_cross(cfg, model, extra["frames"], cache)
+    tok = prompt[:, :1]
 
     def two_steps():
         nonlocal tok, cache
@@ -1174,30 +1320,39 @@ def phase_serve(torch, arch, serve, steps, models, get_config, kernels, counts,
     out["decode_profile"] = prof = profile_window(torch, two_steps)
     # Shares of the unprofiled time, as in phase 3 (the profiler slows the host).
     out["decode_busy_share"] = prof["device_busy_ms"] / 2 / out["ms_per_decode_step"]
+    out["decode_busy_ms_per_step"] = prof["device_busy_ms"] / 2
     out["decode_launches_per_step"] = prof["device_launches"] / 2
-    del full, dec, cache, outs, logits
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
 
     prefill = steps.make_prefill_step(api)
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, 2048)),
-                             dtype=torch.int32, device="cuda")
-    logits = prefill(model, {"tokens": tokens})  # warm
-    del logits
+    pbatch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, 2048)),
+                                        dtype=torch.int32, device="cuda"),
+              **stub_inputs(torch, cfg, batch, seed=3)}
+    # The prefill's own peak; the profiled call is the warm-up of the timed one.
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["prefill_profile"] = prof = profile_window(torch, lambda: prefill(model, pbatch),
+                                                   match=forward_kernel)
     reset_counts(*kernels)
     t0 = time.perf_counter()
-    logits = prefill(model, {"tokens": tokens})
+    logits = prefill(model, pbatch)
     torch.cuda.synchronize()
     out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    # Before the checks below: isfinite of float32 logits holds an abs()
+    # copy of them (7.8 GiB at gemma2-27b's B 4 x 2048).
+    out["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     out["prefill_tokens_per_s"] = batch * 2048 / (out["prefill_ms"] / 1e3)
     out["prefill_launches"] = expect_counts(kernels, f"{arch} B {batch} x 2048 prefill",
                                             counts["prefill"])
-    if logits.shape != (batch, 2048, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+    want_rows = 2048 + (cfg.n_img_tokens if cfg.family == "vlm" else 0)
+    if logits.shape != (batch, want_rows, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
         fail(f"{arch}: prefill logits {tuple(logits.shape)} not finite of the expected shape")
-    out["prefill_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    del logits
-    out["prefill_profile"] = prof = profile_window(torch, lambda: prefill(model, {"tokens": tokens}))
     out["prefill_busy_share"] = prof["device_busy_ms"] / out["prefill_ms"]
-    del tokens
+    out["prefill_kernel_share"] = prof["match_ms"] / prof["device_busy_ms"]
+    del logits, pbatch
     gc.collect()
     torch.cuda.empty_cache()
     if long_cache:
@@ -1282,16 +1437,36 @@ def phase_long_cache(torch, models, cfg, api, model, kernels, per_step) -> dict:
 # Phase 9: reduced models, card against CPU
 # --------------------------------------------------------------------------
 
+def parity_counts(cfg) -> dict:
+    """Exact launches of phase 9's reduced float32 run (a 16-token forward
+    and 4 decode steps): every forward attention on the SIMT kernel (16
+    query rows, float32), every decode attention on the decode kernel (head
+    dim 16), the scan once a layer a call. The hybrid attends once a group,
+    the encoder-decoder in the encoder, the decoder's self- and
+    cross-attention and (``prefill_cross``) the encoder again."""
+    n = cfg.n_layers
+    if cfg.family == "ssm":
+        return {"mamba1_scan": 5 * n}
+    if cfg.family == "hybrid":
+        n //= cfg.hybrid_attn_every
+    if cfg.family == "encdec":
+        e = cfg.n_enc_layers
+        return {"flash_attention": e + 2 * n + e + 4 * 2 * n,
+                "flash_attention_decode": 4 * 2 * n}
+    return {"flash_attention": 5 * n, "flash_attention_decode": 4 * n}
+
+
 def phase_lm_parity(torch, models, configs, kernels):
-    """Reduced minitron-4b and falcon-mamba-7b in float32 with the same
-    weights: forward logits and 4 decode steps on the card (kernels) and on
-    the CPU (plain versions) agree within 1e-5 of scale. Both sum in float32
-    in other orders (matmuls outside TF32, set in main). Exact launches: the
-    forward takes the SIMT attention kernel (16 query rows), each decode step
-    the decode one (head dim 16); or the scan, once a layer a call."""
+    """Every architecture, reduced, in float32 with the same weights: forward
+    logits and 4 decode steps on the card (kernels) and on the CPU (plain
+    versions) agree within 1e-5 of scale. Both sum in float32 in other
+    orders (matmuls outside TF32, set in main). An MoE's routing is
+    compared first: the experts each call chose and the assignments it
+    kept, equal on both sides. Exact launches (``parity_counts``)."""
+    from repro_torch.models import encdec, moe
     out = {}
     batch = 2
-    for arch in ("minitron-4b", "falcon-mamba-7b"):
+    for arch in configs.all_configs():
         cfg = configs.reduced(configs.get_config(arch))
         cpu = models.build_model(cfg, device="cpu")
         gpu = models.build_model(cfg)
@@ -1300,24 +1475,96 @@ def phase_lm_parity(torch, models, configs, kernels):
         m_gpu.load_state_dict(m_cpu.state_dict())
         tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (batch, 16)).astype(np.int32)
         tc, tg = torch.as_tensor(tokens), torch.as_tensor(tokens, device="cuda")
+        xc = stub_inputs(torch, cfg, batch, seed=6, device="cpu")
+        xg = {k: v.cuda() for k, v in xc.items()}
         reset_counts(*kernels)
-        pairs = [("forward", gpu.forward(m_gpu, {"tokens": tg}), cpu.forward(m_cpu, {"tokens": tc}))]
+        with moe.recording_routing() as log_g:
+            fwd_g = gpu.forward(m_gpu, {"tokens": tg, **xg})
+        with moe.recording_routing() as log_c:
+            fwd_c = cpu.forward(m_cpu, {"tokens": tc, **xc})
+        routing = None
+        if cfg.family == "moe":
+            if len(log_g) != cfg.n_layers or any(
+                    not torch.equal(ig.cpu(), ic) or not torch.equal(kg.cpu(), kc)
+                    for (ig, kg), (ic, kc) in zip(log_g, log_c)):
+                fail(f"{arch} reduced: the card and the CPU routed tokens to other experts")
+            routing = {"calls": len(log_g),
+                       "dropped": int(sum(int((~kc).sum()) for _, kc in log_c))}
+        pairs = [("forward", fwd_g, fwd_c)]
         c_cpu, c_gpu = cpu.init_cache(batch, 8), gpu.init_cache(batch, 8)
+        if cfg.family == "encdec":
+            c_cpu = encdec.prefill_cross(cfg, m_cpu, xc["frames"], c_cpu)
+            c_gpu = encdec.prefill_cross(cfg, m_gpu, xg["frames"], c_gpu)
         for t in range(4):
             lg, c_gpu = gpu.decode_step(m_gpu, c_gpu, tg[:, t:t + 1])
             lc, c_cpu = cpu.decode_step(m_cpu, c_cpu, tc[:, t:t + 1])
             pairs.append((f"decode{t}", lg, lc))
-        n = cfg.n_layers
-        want_counts = ({"flash_attention": 5 * n, "flash_attention_decode": 4 * n}
-                       if cfg.family == "dense" else {"mamba1_scan": 5 * n})
-        launched = expect_counts(kernels, f"{arch} reduced", want_counts)
+        launched = expect_counts(kernels, f"{arch} reduced", parity_counts(cfg))
         worst = 0.0
         for name, g, c in pairs:
             rel = rel_err(g.cpu(), c)[1]
             worst = max(worst, rel)
             if rel > 1e-5:
                 fail(f"{arch} reduced {name}: card and CPU logits differ by {rel:.3e} of scale")
-        out[arch] = {"max_err_of_scale": worst, "launches": launched}
+        out[arch] = {"max_err_of_scale": worst, "launches": launched,
+                     **({"routing": routing} if routing else {})}
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 12: every other family served at its published widths
+# --------------------------------------------------------------------------
+
+def attn_counts(simt: int = 0, wgmma: int = 0, decode: int = 0) -> dict:
+    """The launch dict of ``simt`` SIMT, ``wgmma`` wgmma and ``decode``
+    decode attention kernels (each counts under ``flash_attention`` too)."""
+    out = {"flash_attention": simt + wgmma + decode}
+    if wgmma:
+        out["flash_attention_wgmma"] = wgmma
+    if decode:
+        out["flash_attention_decode"] = decode
+    return out
+
+
+# arch -> (depth cut, 0 for none; exact attention launches of one decode
+# step, the 16-token forward, the B 4 x 2048 prefill and the serve run's
+# set-up). One launch an attention layer a call: bf16 streams take the wgmma
+# kernel in prefill at hd 64 / 128, the SIMT kernel below 64 query rows and
+# at hd 80 / 256; gemma2-27b's and paligemma-3b's streams are float32 (the
+# embedding scale promotes), so their prefill and forward run the SIMT
+# kernel in float32 and their decode the decode kernel's float32 instances.
+# zamba2-2.7b attends once per group of 6 Mamba-2 layers (9 a call);
+# whisper-base in its 6 encoder layers (float32), 6 causal self-attentions
+# and 6 cross-attentions over 1,500 frames (float32 keys against the bf16
+# query in a forward, so the SIMT kernel in float32; the bf16 cache in
+# decode), and ``prefill_cross`` encodes once (6). mixtral-8x7b keeps 24 of
+# its 32 layers: all 32 are 93 GB of bf16 weights, the card holds 85.
+FAMILY_CELLS = {
+    "qwen2.5-32b": (0, attn_counts(decode=64), attn_counts(simt=64), attn_counts(wgmma=64), {}),
+    "gemma2-27b": (0, attn_counts(decode=46), attn_counts(simt=46), attn_counts(simt=46), {}),
+    "granite-20b": (0, attn_counts(decode=52), attn_counts(simt=52), attn_counts(wgmma=52), {}),
+    "mixtral-8x7b": (24, attn_counts(decode=24), attn_counts(simt=24), attn_counts(wgmma=24),
+                     {}),
+    "zamba2-2.7b": (0, attn_counts(decode=9), attn_counts(simt=9), attn_counts(simt=9), {}),
+    "whisper-base": (0, attn_counts(decode=12), attn_counts(simt=18),
+                     attn_counts(simt=12, wgmma=6), attn_counts(simt=6)),
+    "paligemma-3b": (0, attn_counts(decode=18), attn_counts(simt=18), attn_counts(simt=18), {}),
+}
+
+
+def phase_families(torch, serve, steps, models, configs, kernels) -> dict:
+    """``phase_serve`` of each ``FAMILY_CELLS`` arch at its published widths
+    (bf16 weights drawn on the card from seed 0; bf16 decode against forward
+    held to ``FAMILY_BF16_TOL``), with the attention kernels' share of the
+    16-token forward and of the prefill; the scan never launches."""
+    out = {}
+    for arch, (layers, step, forward, prefill, extra) in FAMILY_CELLS.items():
+        t0 = time.perf_counter()
+        counts = {"step": step, "forward": forward, "prefill": prefill, "serve_extra": extra}
+        out[arch] = r = phase_serve(torch, arch, serve, steps, models, configs.get_config,
+                                    kernels, counts, "flash_", layers=layers,
+                                    decode_tol=FAMILY_BF16_TOL)
+        r["phase_s"] = time.perf_counter() - t0
     return out
 
 
@@ -1894,6 +2141,37 @@ def phase_train(torch, models, configs, steps, kernels, fkernel, fops, fref, sop
     return out
 
 
+def report_families(fam: dict, smi: str, t0: float) -> None:
+    for arch, r in fam.items():
+        print(f"phase 12 {arch} ({r['n_layers']} layers, {r['weights_gb']:.2f} GB of bf16 "
+              f"weights) [{smi}]: " + json.dumps(
+                  {k: r[k] for k in ("ms_per_decode_step", "tokens_per_s", "prefill_ms", "prefill_peak_gib", "check_peak_gib",
+                                     "serve_peak_gib",
+                                     "decode_busy_ms_per_step", "decode_busy_share",
+                                     "decode_launches_per_step", "step_launches",
+                                     "forward_launches", "prefill_launches", "serve_launches",
+                                     "decode_vs_forward_err_of_scale", "argmax_agreement",
+                                     "prefill_kernel_share",
+                                     "prefill_busy_share", "init_s", "phase_s")}))
+        print(f"phase 12 {arch} " + decode_gaps(r))
+        fp, pp = r["forward_profile"], r["prefill_profile"]
+        print(f"phase 12 {arch} attention share: forward {fp['kernel_share']:.4f} "
+              f"({fp['match_ms']:.4f} of {fp['device_busy_ms']:.4f} ms), prefill "
+              f"{r['prefill_kernel_share']:.4f} ({pp['match_ms']:.3f} of "
+              f"{pp['device_busy_ms']:.3f} ms)")
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+
+
+def decode_gaps(r: dict) -> str:
+    """``phase_serve``'s three decode checks, each against its limit."""
+    f32, pg = r["decode_vs_forward_f32"], r["decode_vs_plain_decode"]
+    return (f"decode vs forward: bf16 {r['decode_vs_forward_err_of_scale']:.4e} of scale "
+            f"(limit {r['decode_tol']}), float32 {f32['err_of_scale']:.4e} (limit "
+            f"{F32_DECODE_TOL}); bf16 decode vs plain decode {pg['err_of_scale']:.4e} (limit "
+            f"{r['decode_tol']}), argmax agreement {pg['argmax_agreement']:.4f}, "
+            f"{r['decode_vs_forward_shape']}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", type=Path, default=None,
@@ -2034,6 +2312,7 @@ def main(argv=None) -> int:
                                "prefill_peak_gib",
                                "init_s")})
             + f" ({time.perf_counter() - t0:.1f} s)")
+        print(f"phase {phase} {arch} " + decode_gaps(r))
         for window in ("forward_profile", "decode_profile", "prefill_profile"):
             print(f"phase {phase} {arch} {window}: " + json.dumps(r[window]))
         if "long_cache" in r:
@@ -2078,6 +2357,10 @@ def main(argv=None) -> int:
         print(f"phase 11 {key}: {json.dumps(trn[key])}")
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    fam = phase_families(torch, serve, steps, models, configs, all_kernels)
+    report_families(fam, smi, t0)
+
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -2117,6 +2400,12 @@ def main(argv=None) -> int:
         return counts["flash_attention"] - counts["flash_attention_wgmma"] - \
             counts["flash_attention_decode"]
 
+    def family_launches(count):
+        """Phase 12's launches of one kernel per decode step, 16-token forward
+        and prefill, per arch."""
+        return {arch: {w: count(r[f"{w}_launches"]) for w in ("step", "forward", "prefill")}
+                for arch, r in fam.items()}
+
     # The SIMT kernel's main path is now minitron-4b's 16-token forward, timed
     # at its shape (forward16_bf16); "decode_forced" keeps its time forced at
     # the serve run's decode shape, its main path before the decode kernel.
@@ -2131,6 +2420,7 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": fa_replaces, "launches": simt_count(mini["forward_launches"]),
         "launches_serve": simt_count(mini["serve_launches"]),
+        "launches_families": family_launches(simt_count),
         "launches_per_decode_step": simt_count(mini["step_launches"]),
         "max_abs_err": fa_err["simt"],
         "ms": fwd["device_ms"], "device_ms": fwd["device_ms"], "event_ms": fwd["ms"],
@@ -2160,6 +2450,7 @@ def main(argv=None) -> int:
         "name": "flash_attention_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_decode_sm90.cu",
         "replaces": fa_replaces, "launches": mini["serve_launches"]["flash_attention_decode"],
+        "launches_families": family_launches(lambda c: c["flash_attention_decode"]),
         "launches_per_decode_step": mini["step_launches"]["flash_attention_decode"],
         "max_abs_err": fa_err["decode"], "ms": dec["device_ms"], "event_ms": dec["ms"],
         "simt_ms": dec["simt_device_ms"], "simt_event_ms": dec["simt_ms"],
@@ -2170,7 +2461,7 @@ def main(argv=None) -> int:
             "shape", "n_split", "ms", "device_ms", "simt_ms", "simt_device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_note", "err_of_scale")}
             for c in ("decode_ring_bf16", "decode32k_b4_bf16", "decode32k_b128_bf16",
-                      "decode_f32")},
+                      "decode_f32", "decode_hd80_bf16", "decode_mqa_bf16", "decode_cross_bf16")},
         "occupancy": dec["occupancy"], "ptxas": decode_regs,
         "long_cache_step": {k: mini["long_cache"][k] for k in (
             "ms_per_step", "device_busy_ms", "attention_ms", "attention_share",
@@ -2182,6 +2473,7 @@ def main(argv=None) -> int:
         "replaces": fa_replaces,
         "launches": mini["prefill_launches"]["flash_attention_wgmma"],
         "launches_serve": mini["serve_launches"]["flash_attention_wgmma"],
+        "launches_families": family_launches(lambda c: c["flash_attention_wgmma"]),
         "max_abs_err": fa_err["wgmma"], "ms": pre["ms"], "simt_ms": pre["simt_ms"],
         "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
         "library_ms": pre["library_ms"], "shape": pre["shape"],
@@ -2223,7 +2515,8 @@ def main(argv=None) -> int:
             "parity": parity, "lm_build_s": lm_build_s, "wgmma_sass": sass,
             "scan_ptxas": scan_regs, "decode_ptxas": decode_regs, "simt_ptxas": simt_regs,
             "lm_kernels": lm_kres,
-            "serve": serve_res, "lm_parity": lm_parity, "fleet": fleet, "train": trn},
+            "serve": serve_res, "lm_parity": lm_parity, "fleet": fleet, "train": trn,
+            "families": fam},
             indent=1))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,11 @@
 """Architecture configs of the PyTorch port (its own copy of
 ``repro.configs.base``, of what the ported model families need).
 
-One ``ArchConfig`` per ported architecture lives in ``configs/<id>.py`` with
-the exact published numbers; ``reduced()`` derives the CPU smoke-test
-variant of the same family. ``register``/``get_config`` back the ``--arch``
-selector of ``launch/serve.py``. Only ported architectures are registered:
-the others are listed in ROADMAP.md and ``get_config`` refuses them.
+One ``ArchConfig`` per architecture lives in ``configs/<id>.py`` with the
+exact published numbers (the JAX package's ten); ``reduced()`` derives the
+CPU smoke-test variant of the same family. ``register``/``get_config`` back
+the ``--arch`` selector of ``launch/serve.py``; ``get_config`` refuses an
+unknown name.
 """
 from __future__ import annotations
 
@@ -14,8 +14,11 @@ import importlib
 
 _REGISTRY: dict[str, "ArchConfig"] = {}
 
-# Modules of the ported architectures (the JAX package has more).
-ARCH_IDS = ["minitron_4b", "falcon_mamba_7b"]
+ARCH_IDS = [
+    "qwen2_5_32b", "minitron_4b", "granite_20b", "gemma2_27b",
+    "mixtral_8x22b", "mixtral_8x7b", "zamba2_2_7b", "whisper_base",
+    "falcon_mamba_7b", "paligemma_3b",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +119,16 @@ class ArchConfig:
             total += self.n_enc_layers * (2 * attn + mlp)
         return int(total)
 
+    def n_active_params(self) -> int:
+        """Parameters a token uses (= n_params outside MoE)."""
+        if self.family != "moe":
+            return self.n_params()
+        d, ff, n_layers = self.d_model, self.d_ff, self.n_layers
+        hd = self.resolved_head_dim
+        attn = d * hd * self.n_heads + 2 * d * hd * self.n_kv_heads + self.n_heads * hd * d
+        mlp = 3 * d * ff * self.n_experts_per_tok + d * self.n_experts
+        return int(n_layers * (attn + mlp) + self.vocab_size * d * 2)
+
 
 def register(cfg: ArchConfig) -> ArchConfig:
     _REGISTRY[cfg.name] = cfg
@@ -129,14 +142,13 @@ def _load_all() -> None:
 
 
 def get_config(name: str) -> ArchConfig:
-    """Look up a ported architecture by its public id (e.g. 'minitron-4b')."""
+    """Look up an architecture by its public id (e.g. 'qwen2.5-32b')."""
     key = name.replace(".", "_").replace("-", "_")
     _load_all()
     for cfg in _REGISTRY.values():
         if cfg.name == name or cfg.name.replace(".", "_").replace("-", "_") == key:
             return cfg
-    raise KeyError(f"arch {name!r} is not ported to PyTorch yet (see ROADMAP.md); "
-                   f"ported: {sorted(_REGISTRY)}")
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
 
 
 def all_configs() -> dict[str, ArchConfig]:

@@ -12,6 +12,10 @@ package does off the TPU. ``"kernel"``, ``"chunked"`` and
 ``"ref"`` force one path; the kernel raises on a CPU tensor. There is no
 fallback: on a CUDA tensor the kernel launches or raises.
 
+Types promote as the JAX package's attention does: q, k and v of different
+types (a float32 query over a bf16 cache, a bf16 query over float32 keys)
+are taken to their promoted type, and the output is in q's type.
+
 Gradients: the kernel route is a ``torch.autograd.Function``
 (``KernelAttention``), the counterpart of the ``custom_vjp`` of
 ``repro.kernels.flash_attention.kernel.flash_attention_pallas``: the
@@ -125,6 +129,10 @@ def flash_attention(q, k, v, q_pos, kv_pos, spec: AttnSpec, kv_valid=None,
     None -> (B, Sq, H, hd) in q.dtype. impl: auto | kernel | chunked | ref."""
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; expected one of {IMPLS}")
+    if not q.dtype == k.dtype == v.dtype:
+        dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+        return flash_attention(q.to(dt), k.to(dt), v.to(dt), q_pos, kv_pos, spec, kv_valid,
+                               scale, impl, q_chunk, kv_chunk).to(q.dtype)
     if impl == "auto":
         impl = "kernel" if q.is_cuda else "chunked"
     if impl == "kernel":

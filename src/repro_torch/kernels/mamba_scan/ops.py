@@ -1,6 +1,5 @@
-"""Mamba-1 selective scan: the plain chunked version and the dispatch that
-the models call; counterpart of ``repro.kernels.mamba_scan.ops`` (Mamba-1
-only: the Mamba-2 scan comes with the hybrid models, ROADMAP.md).
+"""Selective scans: the plain chunked versions and the dispatch that the
+models call; counterpart of ``repro.kernels.mamba_scan.ops``.
 
 ``mamba1_scan(..., impl="auto")`` launches the CUDA kernel (``kernel.py``)
 for CUDA tensors -- prefill and decode (S = 1, with h0) alike, as the JAX
@@ -12,15 +11,19 @@ Gradients: the kernel has no backward (nor has the Pallas scan), so the
 kernel route raises when autograd records the call; it never falls back to
 the chunked version unasked. The plain versions are differentiated by
 autograd, as JAX differentiates ``mamba1_scan_chunked`` off the TPU.
+
+``mamba2_scan`` has no kernel, as the JAX package has no Pallas kernel for
+it: its ``auto`` route is the SSD chunked matmul form on every device.
 """
 from __future__ import annotations
 
 import torch
 
 from . import kernel
-from .ref import mamba1_scan_ref
+from .ref import mamba1_scan_ref, mamba2_scan_ref
 
 IMPLS = ("auto", "kernel", "chunked", "ref")
+MAMBA2_IMPLS = ("auto", "chunked", "ref")
 
 
 def _pick_chunk(s: int, chunk: int) -> int:
@@ -87,3 +90,45 @@ def mamba1_scan(x, dt, a, b, c, h0=None, chunk: int = 256, impl: str = "auto"):
     if impl == "chunked":
         return mamba1_scan_chunked(x, dt, a, b, c, h0, chunk)
     return mamba1_scan_ref(x, dt, a, b, c, h0)
+
+
+def mamba2_scan_chunked(x, dt, a, b, c, h0=None, chunk: int = 128):
+    """The SSD chunked matmul form (Dao & Gu): within a chunk an
+    attention-like C B^T masked by the decay kernel, across chunks a carried
+    (B, H, N, P) state. Same contract as ``mamba2_scan_ref``."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    cs = _pick_chunk(s, chunk)
+    hst = (torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+           if h0 is None else h0.float())
+    a = a.float()
+    causal = torch.tril(torch.ones((cs, cs), dtype=torch.bool, device=x.device))
+    ys = []
+    for t0 in range(0, s, cs):
+        xc, dtc = x[:, t0:t0 + cs].float(), dt[:, t0:t0 + cs].float()
+        bc, cc = b[:, t0:t0 + cs].float(), c[:, t0:t0 + cs].float()
+        cum = torch.cumsum(dtc * a, dim=1)  # (B, cs, H), decreasing
+        # decay kernel L[i, j] = exp(cum_i - cum_j) for i >= j, else 0 (the
+        # exponent is masked first, so no inf reaches a gradient)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]  # (B, i, j, H)
+        lmat = torch.exp(diff.masked_fill(~causal[None, :, :, None], float("-inf")))
+        w = torch.einsum("bin,bjn->bij", cc, bc)[..., None] * lmat  # (B, i, j, H)
+        y_intra = torch.einsum("bijh,bjhp->bihp", w, dtc[..., None] * xc)
+        y_inter = torch.einsum("bin,bhnp,bih->bihp", cc, hst, torch.exp(cum))
+        total = cum[:, -1]  # (B, H)
+        decay_j = torch.exp(total[:, None, :] - cum)  # (B, cs, H)
+        s_new = torch.einsum("bjn,bjh,bjhp->bhnp", bc, decay_j * dtc, xc)
+        hst = torch.exp(total)[..., None, None] * hst + s_new
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, dim=1).to(x.dtype), hst
+
+
+def mamba2_scan(x, dt, a, b, c, h0=None, chunk: int = 128, impl: str = "auto"):
+    """Mamba-2 scan entry point of the models: (y, h_final), see ref.py.
+    impl: auto (= chunked) | chunked | ref."""
+    if impl not in MAMBA2_IMPLS:
+        raise ValueError(f"Mamba-2 scan impl {impl!r}: expected one of {MAMBA2_IMPLS} "
+                         f"(Mamba-2 has no kernel)")
+    if impl == "ref":
+        return mamba2_scan_ref(x, dt, a, b, c, h0)
+    return mamba2_scan_chunked(x, dt, a, b, c, h0, chunk)

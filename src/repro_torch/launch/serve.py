@@ -1,10 +1,12 @@
 """Batched greedy-decode serving entry point of the port (counterpart of
 ``repro.launch.serve``): the prompt is fed through the KV cache / recurrent
 state one token at a time (teacher-forced), then ``--gen`` tokens are
-generated greedily; prints one JSON summary line.
+generated greedily; prints one JSON summary line. An encoder-decoder first
+encodes stub frames (drawn from a generator seeded with 1) into its
+cross-attention cache.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
-    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --reduced --device cpu
 
 Runs on the CUDA card (weights drawn there from ``--seed``, stored in the
 compute dtype); ``--device cpu`` runs the plain PyTorch versions instead.
@@ -12,6 +14,7 @@ compute dtype); ``--device cpu`` runs the plain PyTorch versions instead.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -19,7 +22,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config, reduced as make_reduced
-from ..models import build_model
+from ..models import build_model, encdec
 from .steps import make_serve_step
 
 
@@ -32,14 +35,24 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the first N layers (a depth cut where the model does not "
+                         "fit the card); 0 keeps them all")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = make_reduced(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed, dtype=getattr(torch, cfg.compute_dtype))
     cache = model.init_cache(args.batch, args.prompt_len + args.gen)
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=model.device).manual_seed(1)
+        frames = torch.randn((args.batch, cfg.enc_ctx, cfg.d_model), generator=gen,
+                             device=model.device)
+        cache = encdec.prefill_cross(cfg, params, frames, cache)
     step = make_serve_step(model)
 
     rng = np.random.default_rng(args.seed)
@@ -56,8 +69,8 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     out = np.stack(generated, axis=1)
     summary = {
-        "arch": cfg.name, "batch": args.batch, "generated": args.gen,
-        "tokens_per_s": round(args.batch * (args.prompt_len + args.gen) / dt, 1),
+        "arch": cfg.name, "n_layers": cfg.n_layers, "batch": args.batch, "generated": args.gen,
+        "tokens_per_s": round(args.batch * (args.prompt_len + args.gen) / dt, 1), "decode_s": dt,
         "sample_tokens": out[0][:8].tolist(), "device": str(model.device),
     }
     print(json.dumps(summary))

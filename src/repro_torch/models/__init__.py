@@ -1,17 +1,19 @@
 """Model facade of the port: ``build_model(cfg, impl, device)`` returns one
-API for every ported architecture family (counterpart of
-``repro.models``).
+API for every architecture family (counterpart of ``repro.models``).
 
-Ported families: ``dense`` (``transformer.DenseLM``) and ``ssm``
-(``ssm.MambaLM``, Mamba-1). ``moe``, ``hybrid``, ``encdec`` and ``vlm``
-raise ``NotImplementedError``; ROADMAP.md lists them. Entry points run on
-the CUDA card unless the caller names another device.
+Families: ``dense`` and ``moe`` (``transformer.DenseLM``), ``ssm``
+(``ssm.MambaLM``, Mamba-1), ``hybrid`` (``hybrid.HybridLM``, Mamba-2 + a
+shared attention block), ``encdec`` (``encdec.EncDecLM``) and ``vlm``
+(``vlm``: the dense backbone with an image prefix). Entry points run on the
+CUDA card unless the caller names another device.
 
 Batch dict convention:
   tokens  (B, S) integer token ids      always
   labels  (B, S) integer, -1 = masked   training (``loss``)
   weights (B,) float32                  optional Cocktail per-sample weights
                                         (the |D_j| aggregation of eq. 15)
+  patches (B, P, D) float               vlm only (stub frontend)
+  frames  (B, enc_ctx, D) float         encdec only (stub frontend)
 """
 from __future__ import annotations
 
@@ -22,11 +24,17 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from . import ssm, transformer
+from . import encdec, hybrid, ssm, transformer, vlm
 from .layers import weighted_cross_entropy
 
 # family -> (module with init_params / forward / init_cache / decode_step, model class)
-_FAMILIES = {"dense": (transformer, transformer.DenseLM), "ssm": (ssm, ssm.MambaLM)}
+_FAMILIES = {
+    "dense": (transformer, transformer.DenseLM), "moe": (transformer, transformer.DenseLM),
+    "ssm": (ssm, ssm.MambaLM), "hybrid": (hybrid, hybrid.HybridLM),
+    "encdec": (encdec, encdec.EncDecLM), "vlm": (vlm, vlm.DenseLM),
+}
+# The stub frontends' inputs that a family's forward takes besides the tokens.
+_EXTRA_INPUT = {"encdec": "frames", "vlm": "patches"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +60,7 @@ def resolve_device(device=None) -> torch.device:
 
 def _family(cfg: ArchConfig):
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(f"model family {cfg.family!r} is not ported to PyTorch "
-                                  "yet (see ROADMAP.md)")
+        raise ValueError(f"unknown model family {cfg.family!r}; known: {sorted(_FAMILIES)}")
     return _FAMILIES[cfg.family]
 
 
@@ -64,11 +71,14 @@ def new_model(cfg: ArchConfig, device, dtype: Optional[torch.dtype] = None) -> n
 
 def _lm_loss(fwd):
     """(model, batch) -> (weighted mean CE, {"ce", "tokens"}): the
-    counterpart of the JAX package's ``_lm_loss`` (its families have no
-    prefix positions)."""
+    counterpart of the JAX package's ``_lm_loss``; the VLM's image prefix
+    positions get label -1."""
     def loss_fn(model, batch):
-        loss, denom = weighted_cross_entropy(fwd(model, batch), batch["labels"],
-                                             batch.get("weights"))
+        logits, labels = fwd(model, batch), batch["labels"]
+        if logits.shape[1] != labels.shape[1]:  # vlm: image prefix positions
+            pad = labels.new_full((labels.shape[0], logits.shape[1] - labels.shape[1]), -1)
+            labels = torch.cat([pad, labels], dim=1)
+        loss, denom = weighted_cross_entropy(logits, labels, batch.get("weights"))
         return loss, {"ce": loss, "tokens": denom}
     return loss_fn
 
@@ -88,8 +98,12 @@ def build_model(cfg: ArchConfig, impl: str = "auto", device=None) -> ModelApi:
         gen.manual_seed(seed)
         return mod.init_params(cfg, new_model(cfg, dev, dtype), gen)
 
+    extra = _EXTRA_INPUT.get(cfg.family)
+
     def forward(model, batch):
-        return mod.forward(cfg, model, batch["tokens"], impl=impl)
+        if extra is None:
+            return mod.forward(cfg, model, batch["tokens"], impl=impl)
+        return mod.forward(cfg, model, batch["tokens"], batch[extra], impl=impl)
 
     return ModelApi(
         cfg=cfg, device=dev, init=init, forward=forward, loss=_lm_loss(forward),

@@ -5,6 +5,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
@@ -16,6 +17,14 @@ def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def compute_dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted type of the two, as ``jnp.einsum`` computes
+    it: a float32 stream (gemma's scaled embedding, whisper's encoder) meets
+    bf16 weights in float32, where ``torch.matmul`` would raise."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(cast(x, dt), cast(w, dt))
 
 
 def unbind_layers(blocks) -> list[dict[str, torch.Tensor]]:
@@ -37,27 +46,36 @@ def cast_params(p: dict[str, torch.Tensor], dtype: torch.dtype) -> dict[str, tor
     return {k: cast(v, dtype) for k, v in p.items()}
 
 
-def apply_layers(cfg, model, x: torch.Tensor, layer_fn: Callable) -> torch.Tensor:
-    """x through every layer of ``model.blocks``: ``layer_fn(x, p, layer)``
-    gets the layer's parameters cast to the compute type. When the forward
-    is recorded for a backward and ``cfg.remat`` is set, each layer is
-    recomputed in the backward (``torch.utils.checkpoint``, as the JAX
-    package's ``jax.checkpoint`` of the scanned body), the cast included."""
+def apply_layers(cfg, blocks, x: torch.Tensor, layer_fn: Callable, group: int = 1,
+                 group_end: Optional[Callable] = None) -> torch.Tensor:
+    """x through every layer of ``blocks`` (a dict of stacked (L, ...)
+    leaves): ``layer_fn(x, p, layer)`` gets the layer's parameters cast to
+    the compute type, and ``group_end(x, g)``, where given, runs after each
+    ``group`` consecutive layers (the hybrid's shared block). When the
+    forward is recorded for a backward and ``cfg.remat`` is set, each group
+    is recomputed in the backward (``torch.utils.checkpoint``, as the JAX
+    package's ``jax.checkpoint`` of the scanned body), the casts included."""
     cdt = compute_dtype(cfg)
     # recorded for a backward: grad mode on and a parameter that requires
     # grad (serving models have none)
     remat = cfg.remat and torch.is_grad_enabled() and any(
-        p.requires_grad for p in model.parameters())
-    for layer, p in enumerate(unbind_layers(model.blocks)):
-        names = tuple(p)
+        p.requires_grad for p in blocks.values())
+    per_layer = unbind_layers(blocks)
+    names = tuple(per_layer[0])
+    for g0 in range(0, len(per_layer), group):
+        layers = per_layer[g0:g0 + group]
 
-        def run(x, *leaves, layer=layer, names=names):
-            return layer_fn(x, cast_params(dict(zip(names, leaves)), cdt), layer)
+        def run(x, *leaves, g0=g0, n=len(layers)):
+            for i in range(n):
+                p = dict(zip(names, leaves[i * len(names):(i + 1) * len(names)]))
+                x = layer_fn(x, cast_params(p, cdt), g0 + i)
+            return x if group_end is None else group_end(x, g0 // group)
 
+        leaves = [v for p in layers for v in p.values()]
         if remat:
-            x = torch.utils.checkpoint.checkpoint(run, x, *p.values(), use_reentrant=False)
+            x = torch.utils.checkpoint.checkpoint(run, x, *leaves, use_reentrant=False)
         else:
-            x = run(x, *p.values())
+            x = run(x, *leaves)
     return x
 
 
@@ -66,6 +84,14 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm in float32 with gain ``w`` and bias ``b``."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * w.float() + b.float()).to(x.dtype)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -99,19 +125,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def sinusoidal_embedding(n_pos: int, dim: int) -> np.ndarray:
+    """(n_pos, dim) float32 sin / cos position table (the encoder's)."""
+    pos = np.arange(n_pos)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / dim)
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32)
+
+
 def _normal(shape: Sequence[int], gen: torch.Generator, device) -> torch.Tensor:
     return torch.randn(tuple(shape), generator=gen, dtype=torch.float32, device=device)
 
 
-def dense_init(gen: torch.Generator, shape: Sequence[int], in_axis: int = 0,
-               scale: float = 1.0, device=None, lead: Sequence[int] = ()) -> torch.Tensor:
-    """N(0, 1) * scale / sqrt(fan_in), float32; ``lead`` prepends stacked axes
-    (the layer axis) that do not count in the fan-in."""
-    return _normal((*lead, *shape), gen, device) * (scale / math.sqrt(shape[in_axis]))
+@torch.no_grad()
+def dense_fill_(out: torch.Tensor, gen: torch.Generator, lead: int = 1, in_axis: int = 0,
+                scale: float = 1.0) -> torch.Tensor:
+    """Fills ``out`` with the JAX package's dense initialiser, N(0, 1) * scale
+    / sqrt(fan_in) over the dims after its ``lead`` stacked axes (layers,
+    experts), which do not count in the fan-in. Drawn in float32 one trailing
+    block (a layer's or an expert's leaf) at a time and stored in ``out``'s
+    type, so the float32 transient is one block, never the whole stack."""
+    shape = out.shape[lead:]
+    s = scale / math.sqrt(shape[in_axis])
+    for block in out.view(-1, *shape):
+        block.copy_(_normal(shape, gen, out.device).mul_(s))
+    return out
 
 
-def embed_init(gen: torch.Generator, shape: Sequence[int], device=None) -> torch.Tensor:
-    return _normal(shape, gen, device) * 0.02
+@torch.no_grad()
+def embed_fill_(out: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    return out.copy_(_normal(out.shape, gen, out.device).mul_(0.02))
 
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,12 +1,14 @@
-"""Mamba-1 blocks and the pure-SSM LM (falcon-mamba) in PyTorch;
-counterpart of the Mamba-1 half of ``repro.models.ssm`` (Mamba-2 comes with
-the hybrid models, ROADMAP.md).
+"""Mamba-1 / Mamba-2 blocks and the pure-SSM LM (falcon-mamba) in PyTorch;
+counterpart of ``repro.models.ssm`` (the Mamba-2 blocks serve the hybrid,
+``hybrid.py``).
 
 ``MambaLM`` keeps the JAX package's parameter tree (per-layer parameters
 stacked on a leading L axis under their JAX names). The selective scan goes
 through ``mamba1_scan`` (the CUDA kernel on the card, in prefill and in
-decode). Decode is O(1) per token: a K-1 conv tail and the recurrent state
-per layer, updated in place by ``decode_step``.
+decode); the Mamba-2 scan through ``mamba2_scan`` (plain PyTorch on every
+device: no kernel, as in the JAX package). Decode is O(1) per token: a K-1
+conv tail and the recurrent state per layer, updated in place by
+``decode_step``.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
-from ..kernels.mamba_scan.ops import mamba1_scan
+from ..kernels.mamba_scan.ops import mamba1_scan, mamba2_scan
 from . import layers as L
 
 
@@ -34,6 +36,19 @@ def mamba1_shapes(cfg: ArchConfig, n_layers: int) -> dict[str, tuple[int, ...]]:
     }
 
 
+def mamba2_shapes(cfg: ArchConfig, n_layers: int) -> dict[str, tuple[int, ...]]:
+    d, di, n, k = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    heads = di // cfg.ssm_head_dim
+    return {
+        "norm": (n_layers, d),
+        # [z | x | B | C | dt] fused input projection (the Mamba-2 layout)
+        "in_proj": (n_layers, d, 2 * di + 2 * n + heads),
+        "conv_w": (n_layers, di, k), "conv_b": (n_layers, di),
+        "dt_bias": (n_layers, heads), "a_log": (n_layers, heads), "ssm_d": (n_layers, heads),
+        "gate_norm": (n_layers, di), "out_proj": (n_layers, di, d),
+    }
+
+
 class MambaLM(nn.Module):
     """Parameters of a pure Mamba-1 LM under the JAX package's names. Built
     empty; ``init_params`` draws them."""
@@ -41,8 +56,8 @@ class MambaLM(nn.Module):
     def __init__(self, cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if cfg.family != "ssm" or cfg.ssm_version != 1:
-            raise NotImplementedError(f"{cfg.family!r} / Mamba-{cfg.ssm_version} is not "
-                                      "ported to PyTorch yet (see ROADMAP.md)")
+            raise ValueError(f"MambaLM takes the ssm family with Mamba-1 layers, not "
+                             f"{cfg.family!r} / Mamba-{cfg.ssm_version}")
         self.cfg = cfg
         dtype = dtype or getattr(torch, cfg.param_dtype)
 
@@ -64,36 +79,46 @@ class MambaLM(nn.Module):
 @torch.no_grad()
 def init_mamba1_stack(cfg: ArchConfig, blocks: nn.ParameterDict, gen: torch.Generator) -> None:
     """Fill a stacked Mamba-1 parameter dict with the JAX package's
-    initialisers (drawn in float32, stored in the parameters' dtype)."""
+    initialisers (drawn layer by layer in float32, stored in the parameters'
+    dtype)."""
     n_layers = blocks["norm"].shape[0]
-    d, di, n, r, k = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
-                      cfg.resolved_dt_rank, cfg.ssm_conv)
+    n, r, di = cfg.ssm_state, cfg.resolved_dt_rank, cfg.d_inner
     dev = blocks["norm"].device
-
-    def dense(shape, scale=1.0):
-        return L.dense_init(gen, shape, scale=scale, device=dev, lead=(n_layers,))
-
     blocks["norm"].zero_()
-    blocks["in_proj"].copy_(dense((d, 2 * di)))
-    blocks["conv_w"].copy_(L.dense_init(gen, (di, k), in_axis=1, device=dev, lead=(n_layers,)))
+    L.dense_fill_(blocks["in_proj"], gen)
+    L.dense_fill_(blocks["conv_w"], gen, in_axis=1)
     blocks["conv_b"].zero_()
-    blocks["x_proj"].copy_(dense((di, r + 2 * n)))
-    blocks["dt_proj"].copy_(dense((r, di), scale=r ** 0.5 * 0.1))
+    L.dense_fill_(blocks["x_proj"], gen)
+    L.dense_fill_(blocks["dt_proj"], gen, scale=r ** 0.5 * 0.1)
     blocks["dt_bias"].fill_(math.log(math.expm1(0.01)))
     arange = torch.arange(1, n + 1, dtype=torch.float32, device=dev)
     blocks["a_log"].copy_(torch.log(arange).expand(n_layers, di, n))
     blocks["ssm_d"].fill_(1.0)
-    blocks["out_proj"].copy_(dense((di, d), scale=1.0 / math.sqrt(2 * cfg.n_layers) * math.sqrt(di)))
+    L.dense_fill_(blocks["out_proj"], gen,
+                  scale=1.0 / math.sqrt(2 * cfg.n_layers) * math.sqrt(di))
+
+
+@torch.no_grad()
+def init_mamba2_stack(cfg: ArchConfig, blocks: nn.ParameterDict, gen: torch.Generator) -> None:
+    """Fill a stacked Mamba-2 parameter dict with the JAX package's
+    initialisers (drawn layer by layer in float32)."""
+    L.dense_fill_(blocks["in_proj"], gen)
+    L.dense_fill_(blocks["conv_w"], gen, in_axis=1)
+    L.dense_fill_(blocks["out_proj"], gen,
+                  scale=1.0 / math.sqrt(2 * cfg.n_layers) * math.sqrt(cfg.d_inner))
+    for name in ("norm", "conv_b", "a_log", "gate_norm"):
+        blocks[name].zero_()
+    blocks["dt_bias"].fill_(math.log(math.expm1(0.01)))
+    blocks["ssm_d"].fill_(1.0)
 
 
 @torch.no_grad()
 def init_params(cfg: ArchConfig, model: MambaLM, gen: torch.Generator) -> MambaLM:
-    dev = model.embed.device
-    model.embed.copy_(L.embed_init(gen, model.embed.shape, device=dev))
+    L.embed_fill_(model.embed, gen)
     init_mamba1_stack(cfg, model.blocks, gen)
     model.final_norm.zero_()
     if not cfg.tie_embeddings:
-        model.head.copy_(L.dense_init(gen, (cfg.d_model, cfg.vocab_size), device=dev))
+        L.dense_fill_(model.head, gen, lead=0)
     return model
 
 
@@ -140,6 +165,29 @@ def mamba1_block(cfg: ArchConfig, x, p, state=None, impl: str = "auto"):
     return out, (None if state is None else {"conv": new_conv, "h": h_new})
 
 
+def mamba2_block(cfg: ArchConfig, x, p, state=None, impl: str = "auto"):
+    """Mamba-2 (SSD) block: heads = d_inner / ssm_head_dim sharing B and C,
+    a per-head D term and the gated RMSNorm. x (B, S, D); state None
+    (prefill) or dict(conv, h) for decode. Returns (out, new_state)."""
+    di, n, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    heads = di // ph
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    z, xi, bmat, cmat, dt_in = L.matmul(h, p["in_proj"]).split([di, di, n, n, heads], dim=-1)
+    xi, new_conv = causal_conv(xi, p["conv_w"], p["conv_b"],
+                               None if state is None else state["conv"])
+    xi = F.silu(xi)
+    dt = F.softplus(dt_in + p["dt_bias"])  # (B, S, H)
+    a = -torch.exp(p["a_log"].float())  # (H,)
+    bsz, s = xi.shape[:2]
+    xh = xi.reshape(bsz, s, heads, ph)
+    y, h_new = mamba2_scan(xh, dt, a, bmat, cmat, h0=None if state is None else state["h"],
+                           chunk=cfg.ssm_chunk, impl=impl)
+    y = (y + xh * p["ssm_d"][:, None]).reshape(bsz, s, di)  # per-head D term
+    y = L.rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)  # gated RMSNorm
+    out = x + L.matmul(y, p["out_proj"])
+    return out, (None if state is None else {"conv": new_conv, "h": h_new})
+
+
 def _logits(cfg: ArchConfig, model: MambaLM, x: torch.Tensor) -> torch.Tensor:
     cdt = L.compute_dtype(cfg)
     x = L.rms_norm(x, L.cast(model.final_norm, cdt), cfg.norm_eps)
@@ -153,7 +201,8 @@ def forward(cfg: ArchConfig, model: MambaLM, tokens: torch.Tensor,
     ``forward`` is; on the card the scan's kernel has no backward yet, so a
     recorded forward raises there (``kernels/mamba_scan/ops.py``)."""
     x = L.cast(model.embed[tokens.long()], L.compute_dtype(cfg))
-    x = L.apply_layers(cfg, model, x, lambda x, p, layer: mamba1_block(cfg, x, p, impl=impl)[0])
+    x = L.apply_layers(cfg, model.blocks, x,
+                       lambda x, p, layer: mamba1_block(cfg, x, p, impl=impl)[0])
     return _logits(cfg, model, x)
 
 

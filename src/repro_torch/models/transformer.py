@@ -1,10 +1,11 @@
-"""Decoder-only dense transformer LM in PyTorch; counterpart of
-``repro.models.transformer`` (dense only: MoE comes in a later slice,
-ROADMAP.md).
+"""Decoder-only transformer LM (dense and MoE) in PyTorch; counterpart of
+``repro.models.transformer``.
 
-Covers minitron (relu^2 MLP) and the dense features of the JAX module: GQA,
-QKV bias, attention and final-logit soft-caps, post-norms, embedding
-scaling, tied heads, sliding windows and alternating local / global layers.
+Covers qwen2.5 (GQA + QKV bias), minitron (relu^2 MLP), granite (MQA),
+gemma2 (alternating local / global attention, soft-caps, post-norms,
+embedding scaling, tied head), mixtral (top-2 MoE, ``moe.moe_ffn``, + sliding
+windows) and the PaliGemma text backbone (prefix-LM mask over prepended
+patch embeddings, ``vlm.py``).
 
   * ``DenseLM`` keeps the JAX package's parameter tree: every per-layer
     parameter is stacked on a leading L axis under its JAX name
@@ -16,6 +17,10 @@ scaling, tied heads, sliding windows and alternating local / global layers.
     them on. ``decode_step`` runs under ``torch.no_grad``.
   * Attention goes through ``flash_attention`` (the CUDA kernel on the card,
     prefill and decode alike).
+  * Types promote as in the JAX package: every product is ``layers.matmul``,
+    so a float32 stream (gemma's embedding scale makes it float32) meets the
+    bf16 weights in float32, and in decode a float32 q meets the bf16 cache
+    in float32 (``flash_attention`` promotes).
   * Decode keeps ring-buffer KV caches for windowed layers (W slots) and full
     caches for global layers; ``kv_pos`` holds absolute positions (-1 for an
     empty slot), so masks stay right after wrap-around. ``decode_step``
@@ -33,17 +38,20 @@ from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import AttnSpec
 from . import layers as L
+from . import moe
+
+FAMILIES = ("dense", "moe", "vlm")
 
 
 class DenseLM(nn.Module):
-    """Parameters of a dense decoder LM, under the JAX package's names and
-    stacked layouts. Built empty; ``init_params`` draws them."""
+    """Parameters of a decoder LM (dense, MoE or the VLM's text backbone),
+    under the JAX package's names and stacked layouts. Built empty;
+    ``init_params`` draws them."""
 
     def __init__(self, cfg: ArchConfig, device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(f"family {cfg.family!r} is not ported to PyTorch yet "
-                                      "(MoE: see ROADMAP.md)")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"DenseLM takes the families {FAMILIES}, not {cfg.family!r}")
         self.cfg = cfg
         dtype = dtype or getattr(torch, cfg.param_dtype)
         n, d, ff, v = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
@@ -56,9 +64,12 @@ class DenseLM(nn.Module):
             shapes.update(bq=(n, h, hd), bk=(n, hkv, hd), bv=(n, hkv, hd))
         if cfg.post_norm:
             shapes.update(attn_post_norm=(n, d), mlp_post_norm=(n, d))
-        if cfg.act in ("silu", "gelu"):
-            shapes["w_gate"] = (n, d, ff)
-        shapes.update(w_up=(n, d, ff), w_down=(n, ff, d))
+        if cfg.family == "moe":
+            shapes.update(moe.moe_shapes(cfg, n))
+        else:
+            if cfg.act in ("silu", "gelu"):
+                shapes["w_gate"] = (n, d, ff)
+            shapes.update(w_up=(n, d, ff), w_down=(n, ff, d))
 
         def empty(shape):
             return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
@@ -76,36 +87,26 @@ class DenseLM(nn.Module):
 
 @torch.no_grad()
 def init_params(cfg: ArchConfig, model: DenseLM, gen: torch.Generator) -> DenseLM:
-    """Draw the parameters in float32 from ``gen`` with the JAX package's
-    initialisers and scales, then store them in the model's dtype."""
-    d, ff, n = cfg.d_model, cfg.d_ff, cfg.n_layers
-    h, hd = cfg.padded_heads, cfg.resolved_head_dim
-    dev = model.embed.device
-    out_scale = 1.0 / math.sqrt(2 * n)
-
-    def dense(shape, scale=1.0):
-        return L.dense_init(gen, shape, scale=scale, device=dev, lead=(n,))
-
-    draws = {
-        "wq": lambda: dense(model.blocks["wq"].shape[1:]),
-        "wk": lambda: dense(model.blocks["wk"].shape[1:]),
-        "wv": lambda: dense(model.blocks["wv"].shape[1:]),
-        "wo": lambda: dense((h, hd, d), scale=out_scale * math.sqrt(hd)),
-        "w_gate": lambda: dense((d, ff)),
-        "w_up": lambda: dense((d, ff)),
-        "w_down": lambda: dense((ff, d), scale=out_scale * math.sqrt(ff)),
-    }
-    model.embed.copy_(L.embed_init(gen, model.embed.shape, device=dev))
+    """Draw the parameters from ``gen`` with the JAX package's initialisers
+    and scales, layer by layer (and expert by expert) in float32, each
+    stored in the model's dtype as it is drawn."""
+    hd, ff = cfg.resolved_head_dim, cfg.d_ff
+    out_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
+    # name -> dense_fill_ keywords; the rest (norms, biases) is zero
+    draws = {"wq": {}, "wk": {}, "wv": {}, "wo": {"scale": out_scale * math.sqrt(hd)},
+             "w_gate": {}, "w_up": {}, "w_down": {"scale": out_scale * math.sqrt(ff)},
+             **moe.init_draws(cfg)}
+    L.embed_fill_(model.embed, gen)
     for name, p in model.blocks.items():
         if name in draws:
-            p.copy_(draws[name]())
-        else:  # norms and biases
+            L.dense_fill_(p, gen, **draws[name])
+        else:
             p.zero_()
     # Padded heads never contribute: their rows of wo are zero.
     model.blocks["wo"][:, cfg.n_heads:] = 0.0
     model.final_norm.zero_()
     if not cfg.tie_embeddings:
-        model.head.copy_(L.dense_init(gen, (d, cfg.vocab_size), device=dev))
+        L.dense_fill_(model.head, gen, lead=0)
     return model
 
 
@@ -113,10 +114,11 @@ def init_params(cfg: ArchConfig, model: DenseLM, gen: torch.Generator) -> DenseL
 # Block
 # ---------------------------------------------------------------------------
 
-def attn_specs(cfg: ArchConfig) -> list[AttnSpec]:
+def attn_specs(cfg: ArchConfig, prefix_len: int = 0) -> list[AttnSpec]:
     """Attention spec of each layer in a group of consecutive layers (two for
-    alternating local / global, else one); layer l uses entry l % len."""
-    base = dict(causal=True, softcap=cfg.attn_softcap)
+    alternating local / global, else one); layer l uses entry l % len.
+    ``prefix_len`` keys are visible to every query (the VLM's image)."""
+    base = dict(causal=True, softcap=cfg.attn_softcap, prefix_len=prefix_len)
     if cfg.local_global_alternate:
         return [AttnSpec(window=cfg.sliding_window, **base), AttnSpec(window=0, **base)]
     return [AttnSpec(window=cfg.sliding_window, **base)]
@@ -124,7 +126,7 @@ def attn_specs(cfg: ArchConfig) -> list[AttnSpec]:
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, S, D) by w (D, *out) -> (B, S, *out)."""
-    return torch.matmul(x, w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    return L.matmul(x, w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
 
 
 def _project_qkv(cfg: ArchConfig, x, p, positions):
@@ -135,16 +137,18 @@ def _project_qkv(cfg: ArchConfig, x, p, positions):
 
 
 def _ffn(cfg: ArchConfig, x, p):
+    if cfg.family == "moe":
+        return moe.moe_ffn(cfg, x, p)
     if cfg.act in ("silu", "gelu"):
-        h = L.activate(torch.matmul(x, p["w_gate"]), cfg.act) * torch.matmul(x, p["w_up"])
+        h = L.activate(L.matmul(x, p["w_gate"]), cfg.act) * L.matmul(x, p["w_up"])
     else:
-        h = L.activate(torch.matmul(x, p["w_up"]), cfg.act)
-    return torch.matmul(h, p["w_down"])
+        h = L.activate(L.matmul(x, p["w_up"]), cfg.act)
+    return L.matmul(h, p["w_down"])
 
 
 def _out(attn: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """attn (B, S, H, hd) by wo (H, hd, D) -> (B, S, D)."""
-    return torch.matmul(attn.reshape(*attn.shape[:2], -1), wo.reshape(-1, wo.shape[-1]))
+    return L.matmul(attn.reshape(*attn.shape[:2], -1), wo.reshape(-1, wo.shape[-1]))
 
 
 def _residual_tail(cfg: ArchConfig, x, attn, p):
@@ -169,35 +173,48 @@ def block_apply(cfg: ArchConfig, x, p, positions, spec: AttnSpec, impl: str = "a
 # Full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ArchConfig, model: DenseLM, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: ArchConfig, model: DenseLM, tokens: torch.Tensor,
+           extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     x = L.cast(model.embed[tokens.long()], L.compute_dtype(cfg))
+    if extra_embeds is not None:  # vlm: prepend the patch embeddings
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     if cfg.scale_embed:  # float32 from here on, as the JAX package promotes
         x = x.float() * math.sqrt(cfg.d_model)
     return x
 
 
-def _logits(cfg: ArchConfig, model: DenseLM, x: torch.Tensor) -> torch.Tensor:
+def logits_of(cfg: ArchConfig, model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Final norm, head (the tied embedding or ``head``) and soft-cap."""
     cdt = L.compute_dtype(cfg)
     x = L.rms_norm(x, L.cast(model.final_norm, cdt), cfg.norm_eps)
     head = L.cast(model.embed, cdt).t() if cfg.tie_embeddings else L.cast(model.head, cdt)
-    logits = torch.matmul(x, head)
+    logits = L.matmul(x, head)
     if cfg.logit_softcap > 0:
-        logits = L.softcap(logits.float(), cfg.logit_softcap)
+        cap = cfg.logit_softcap
+        logits = logits.float()
+        # In place where autograd does not record it: a prefill's float32
+        # logits are the largest tensor of its peak (8.4 GB at gemma2-27b's
+        # B 4 x 2048), and the same ops in place give the same bits.
+        logits = (L.softcap(logits, cap) if logits.requires_grad
+                  else logits.div_(cap).tanh_().mul_(cap))
     return logits
 
 
 def forward(cfg: ArchConfig, model: DenseLM, tokens: torch.Tensor,
+            extra_embeds: Optional[torch.Tensor] = None, prefix_len: int = 0,
             impl: str = "auto") -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S, V). Differentiable: recorded for a
-    backward when a parameter requires grad (then with per-layer recompute
-    under ``cfg.remat``); serving calls it under ``torch.no_grad``."""
-    x = _embed(cfg, model, tokens)
+    """tokens (B, S_text) -> logits (B, S_total, V); ``extra_embeds``
+    (B, P, D) are prepended (PaliGemma's patches) and the first
+    ``prefix_len`` positions seen by every query. Differentiable: recorded
+    for a backward when a parameter requires grad (then with per-layer
+    recompute under ``cfg.remat``); serving calls it under ``torch.no_grad``."""
+    x = _embed(cfg, model, tokens, extra_embeds)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-    specs = attn_specs(cfg)
-    x = L.apply_layers(cfg, model, x, lambda x, p, layer: block_apply(
+    specs = attn_specs(cfg, prefix_len)
+    x = L.apply_layers(cfg, model.blocks, x, lambda x, p, layer: block_apply(
         cfg, x, p, positions, specs[layer % len(specs)], impl=impl))
-    return _logits(cfg, model, x)
+    return logits_of(cfg, model, x)
 
 
 # ---------------------------------------------------------------------------
@@ -253,4 +270,4 @@ def decode_step(cfg: ArchConfig, model: DenseLM, cache: dict, tokens: torch.Tens
         attn = flash_attention(q, kc, vc, positions, pc, spec, kv_valid=pc >= 0, impl=impl)
         x = _residual_tail(cfg, x, _out(attn, p["wo"]), p)
     cache["pos"] = pos + 1
-    return _logits(cfg, model, x), cache
+    return logits_of(cfg, model, x), cache
