@@ -84,11 +84,14 @@ Phases, each fatal on failure:
      slots against their slices' own runs;
  11. train minitron-4b at its full width through ``repro_torch.launch.train``
      (B 16 x 128, DS every 4 steps, 8 steps, float32 master weights and
-     AdamW, bf16 compute, per-layer remat; 32 layers unless the peak memory
+     AdamW, bf16 compute, per-layer remat, under a (1, 1) mesh: weights and
+     moments as ZeRO blocks, each layer all-gathered in bf16 at use and its
+     gradient reduce-scattered; 32 layers unless the peak memory
      passes 95 % of the card, then 16): ms per step, tokens/s, peak memory,
      every loss finite, the wgmma attention kernel launched exactly twice a
      layer a step (forward and recompute), the matchers' launches per slot;
-     one profiled step (device busy, launches); reduced minitron-4b's train
+     the same step without and under the mesh (median host ms of three, one
+     profiled: device busy, launches, NCCL time); reduced minitron-4b's train
      step on the card against the CPU; a run killed after step 10 and
      resumed against an uninterrupted 20-step run; the attention Function at
      the train shape (forward against the plain version, gradients bit-equal
@@ -105,7 +108,18 @@ Phases, each fatal on failure:
      decode checks of phase 7 (bf16 against forward at its own limit),
      ms per decode step, tokens/s, prefill ms, peak memory of the serve run,
      of the checks and of the prefill, device busy per decode step and
-     attention's share of the forward and the prefill (profiler).
+     attention's share of the forward and the prefill (profiler);
+ 13. the distribution layer (``repro_torch.parallel``, ``launch.mesh``) at a
+     world of 1: a NCCL process group started in the process through an
+     in-process store (no network address), a (1, 1) host mesh and a
+     (1, 1, 1) pod mesh; the int8 cross-pod sum on float32 and bf16 leaves
+     bit-equal to the plain pack dequantised (its all-gathers through
+     NCCL); ``train.main`` under the mesh at minitron-4b's widths, 8 of 32
+     layers, B 16 x 128, 3 steps, bit-equal (losses and parameters) to the
+     unsharded ``make_train_step`` on the same weights and batches, ms per
+     step of both and the all-gathers and reduce-scatters per step;
+     ``FleetEngine.run(mesh=)`` of DS and L-DS fleets of K = 8 at 1024 x
+     32 over 3 slots bit-equal to ``run()`` with the same matcher launches.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without that last
@@ -1847,19 +1861,32 @@ def train_full_width(torch, train, configs, kernels, n_layers: int) -> dict:
             "slots": slots}
 
 
-def profile_train_step(torch, api, train, steps, optim, kernels, n_layers) -> dict:
-    """One train step of the same model and a batch of the run's sampler,
-    profiled after a warm step: device busy time, launches, busy share of
-    the host-clock step; the wgmma launches of one step counted."""
+def profile_train_step(torch, api, train, steps, optim, kernels, n_layers, mesh=None) -> dict:
+    """Train steps of the same model and a batch of the run's sampler: the
+    host-clock time of three steps after a warm one (their median is
+    ``unprofiled_step_ms``), then one profiled step: device busy time,
+    launches, busy share; the wgmma launches of one step counted. With
+    ``mesh``, the model's blocks are sharded and the steps run under it
+    (the profile then matches the NCCL kernels); without, the step's
+    forward, backward and AdamW spans follow."""
     import gc
     from repro_torch.data import CocktailSampler, TokenSource
+    from repro_torch.parallel import sharding
     cfg = api.cfg
     ck = train.build_cocktail(12, 2, 0)
     sampler = CocktailSampler(ck, [TokenSource(i, cfg.vocab_size, 128) for i in range(12)],
                               batch_per_ec=8)
     state = api.init(0)
+    if mesh is not None:
+        sharding.shard_params(state, mesh)
     opt = optim.adamw_init(state)
-    step = steps.make_train_step(api, optim.AdamWConfig(), total_steps=8)
+    plain_step = steps.make_train_step(api, optim.AdamWConfig(), total_steps=8)
+
+    def step(*args):
+        if mesh is None:
+            return plain_step(*args)
+        with sharding.mesh_context(mesh):
+            return plain_step(*args)
     import types
     host = sampler.sample(types.SimpleNamespace(x=np.ones((12, 2), np.float32),
                                                 y=np.zeros((12, 2, 2), np.float32)))
@@ -1874,12 +1901,23 @@ def profile_train_step(torch, api, train, steps, optim, kernels, n_layers) -> di
         nonlocal state, opt, met
         state, opt, met = step(state, opt, batch)
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    one()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3
-    prof = profile_window(torch, one, match="flash_fwd_sm90_kernel")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = sorted(times)[1]
+    prof = profile_window(torch, one, match="flash_fwd_sm90_kernel" if mesh is None else "nccl")
+    if mesh is not None:
+        out = {**prof, "unprofiled_step_ms": step_ms, "step_ms": times, "launches": per_step,
+               "busy_share_of_unprofiled_step": prof["device_busy_ms"] / step_ms,
+               "loss": float(met["loss"])}
+        del state, opt, met, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
 
     # The same step in three spans between CUDA events (stream time, host
     # gaps included): the loss's forward, the backward with the per-layer
@@ -1900,7 +1938,7 @@ def profile_train_step(torch, api, train, steps, optim, kernels, n_layers) -> di
     spans = {name: events[i].elapsed_time(events[i + 1])
              for i, name in enumerate(("forward_ms", "backward_ms", "optimizer_ms"))}
     del loss, grads, named
-    out = {**prof, "unprofiled_step_ms": step_ms, "launches": per_step,
+    out = {**prof, "unprofiled_step_ms": step_ms, "step_ms": times, "launches": per_step,
            "busy_share_of_unprofiled_step": prof["device_busy_ms"] / step_ms,
            "loss": float(met["loss"]), "spans": spans}
     del state, opt, met, batch
@@ -2134,10 +2172,251 @@ def phase_train(torch, models, configs, steps, kernels, fkernel, fops, fref, sop
     cfg = dataclasses.replace(cfg, n_layers=full["summary"]["n_layers"])
     out["profile"] = profile_train_step(torch, models.build_model(cfg), train, steps, optim,
                                         kernels, cfg.n_layers)
+    from repro_torch.launch import mesh as lmesh
+    out["profile_mesh"] = profile_train_step(torch, models.build_model(cfg), train, steps,
+                                             optim, kernels, cfg.n_layers,
+                                             mesh=lmesh.make_host_mesh())
     out["card_vs_cpu"] = train_card_vs_cpu(torch, models, configs, steps, optim, kernels)
     out["resume"] = train_resume(torch, train, kernels, ROOT / "build" / "chip_smoke_resume")
     out["attention"] = attention_train_shape(torch, fops, fref, fkernel)
     out["scan"] = scan_refuses_autograd(torch, sops)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 13: the distribution layer at a world of 1
+# --------------------------------------------------------------------------
+
+DIST_LAYERS = 8  # of minitron-4b's 32, for time
+DIST_STEPS = 3
+DIST_FLEET_K = 8
+DIST_FLEET_SLOTS = 3
+
+
+def dist_cross_pod(torch, collectives, sharding, pod_mesh) -> dict:
+    """(a) ``cross_pod_sum_partials`` on a (1, 1, 1) pod mesh: the int8
+    payload and the scale go through NCCL (two all-gathers a leaf); with one
+    pod the sum is the plain pack dequantised, bit for bit."""
+    rng = np.random.default_rng(31)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.as_tensor(rng.standard_normal((4096, 3072)).astype(np.float32),
+                            device="cuda").to(dtype)
+
+        def plain():
+            q, scale = collectives._int8_pack(x)
+            return (q.float() * scale).to(dtype)
+
+        def summed():
+            return collectives.cross_pod_sum_partials({"g": x}, pod_mesh)["g"]
+
+        sharding.reset_comm_counts()
+        got = summed()
+        torch.cuda.synchronize()
+        gathers = sharding.comm_counts["all_gather"]
+        if gathers != 2:
+            fail(f"cross-pod sum ({dtype}): {gathers} all-gathers, expected 2")
+        if got.dtype != dtype or not torch.equal(got, plain()):
+            fail(f"cross-pod sum ({dtype}): not bit-equal to the plain pack and dequantise")
+        out[str(dtype).replace("torch.", "")] = {
+            "shape": list(x.shape), "bit_equal": True, "all_gathers": gathers,
+            "wire_bytes": sharding.comm_counts["all_gather_bytes"],
+            "ms": cuda_ms(torch, summed, 10, 2), "plain_ms": cuda_ms(torch, plain, 10, 2)}
+    return out
+
+
+def recording_train_step(torch, train):
+    """Patch ``train.make_train_step`` so the run's step records each batch
+    (cloned), its own device time (synchronised on both sides) and the last
+    (params, opt); returns (record, restoring function)."""
+    make = train.make_train_step
+    rec = {"batches": [], "ms": []}
+
+    def recording(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def run(params, opt, batch):
+            rec["batches"].append({k: v.clone() for k, v in batch.items()})
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(params, opt, batch)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t) * 1e3)
+            rec["state"], rec["opt"] = out[0], out[1]
+            return out
+        return run
+
+    train.make_train_step = recording
+    return rec, lambda: setattr(train, "make_train_step", make)
+
+
+def dist_train(torch, train, steps, optim, models, configs, sharding, kernels, mesh) -> dict:
+    """(b) ``train.main`` under the (1, 1) mesh at minitron-4b's widths, cut
+    to DIST_LAYERS layers, B 16 x 128, DIST_STEPS steps, against the
+    unsharded ``make_train_step`` on the same weights (seed 0) and the
+    batches the run drew: losses and parameters bit for bit (every
+    collective of a world of 1 is a copy; deterministic algorithms on both
+    sides). Counts the collectives of the run per step; then profiles one
+    more step of each (device busy, NCCL kernels' time and launches)."""
+    import gc
+    cfg = configs.register(dataclasses.replace(configs.get_config("minitron-4b"),
+                                               name=f"minitron-4b-{DIST_LAYERS}l",
+                                               n_layers=DIST_LAYERS))
+    argv = list(TRAIN_ARGV)
+    argv[argv.index("minitron-4b")] = cfg.name
+    argv[argv.index("--steps") + 1] = str(DIST_STEPS)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        rec, restore = recording_train_step(torch, train)
+        sharding.reset_comm_counts()
+        reset_counts(*kernels)
+        try:
+            summary = train.main(argv)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        comm = dict(sharding.comm_counts)
+        params = rec.pop("state")
+        named = dict(params.named_parameters())
+        shard = sharding.param_shardings(params)
+        stacked = sum(1 for k, sh in shard.items() if sh.dim is not None and "blocks" in k)
+        top = sum(1 for k, sh in shard.items() if sh.dim is not None and "blocks" not in k)
+        host = {k: p.detach().cpu() for k, p in named.items()}
+        api = models.build_model(cfg)
+        last = rec["batches"][-1]
+        mesh_step = steps.make_train_step(api, optim.AdamWConfig(), total_steps=DIST_STEPS)
+        opt = rec.pop("opt")
+
+        def one_mesh_step():
+            with sharding.mesh_context(mesh):
+                mesh_step(params, opt, last)
+
+        mesh_prof = profile_window(torch, one_mesh_step, match="nccl")
+        del params, named, shard, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        model = api.init(0)
+        opt = optim.adamw_init(model)
+        step = steps.make_train_step(api, optim.AdamWConfig(), total_steps=DIST_STEPS)
+        ref_losses, ref_ms = [], []
+        for batch in rec["batches"]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model, opt, met = step(model, opt, batch)
+            torch.cuda.synchronize()
+            ref_ms.append((time.perf_counter() - t) * 1e3)
+            ref_losses.append(float(met["loss"]))
+        worst, unequal = 0.0, []
+        for k, p in model.named_parameters():
+            a, b = host[k], p.detach().cpu()
+            if not torch.equal(a, b):
+                unequal.append(k)
+                worst = max(worst, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+        plain_prof = profile_window(torch, lambda: step(model, opt, last), match="nccl")
+        del model, opt, met, host, rec["batches"], last
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if summary["losses"] != ref_losses:
+        fail(f"distributed train: losses {summary['losses']} under the mesh, {ref_losses} "
+             f"unsharded")
+    if unequal:
+        fail(f"distributed train: {len(unequal)} parameters differ from the unsharded step "
+             f"(largest {worst:.3e} of scale): {unequal[:5]}")
+    # One all-gather a layer a forward pass (the remat recompute gathers
+    # again) and one reduce-scatter a layer, each carrying the layer's
+    # sharded leaves; the embedding and the head one each.
+    remat = 2 if cfg.remat else 1
+    want = {"all_gather": DIST_STEPS * (remat * DIST_LAYERS + top),
+            "reduce_scatter": DIST_STEPS * (DIST_LAYERS + top)}
+    if {k: comm.get(k, 0) for k in want} != want:
+        fail(f"distributed train: collectives {comm}, expected {want}")
+    return {"layers": DIST_LAYERS, "steps": DIST_STEPS, "losses": ref_losses,
+            "bit_equal": True, "mesh_ms": rec["ms"], "unsharded_ms": ref_ms,
+            "mesh_ms_per_step": sum(rec["ms"][1:]) / (DIST_STEPS - 1),
+            "unsharded_ms_per_step": sum(ref_ms[1:]) / (DIST_STEPS - 1),
+            "collectives": comm, "sharded_leaves": {"per_layer": stacked, "top": top},
+            "per_step": {k: v / DIST_STEPS for k, v in comm.items()},
+            "deterministic_algorithms": True, "summary_world": summary["world"],
+            "profile": {"mesh": mesh_prof, "unsharded": plain_prof}}
+
+
+def dist_fleet(torch, core, kernel, bridge, mesh) -> dict:
+    """(c) ``FleetEngine.run(mesh=)`` of DS and L-DS fleets of K = 8 at
+    1024 x 32 over DIST_FLEET_SLOTS slots against ``run()``: final states
+    and records bit for bit, the same matcher launches."""
+    out = {}
+    for name, spec in (("ds", core.DS), ("l-ds", core.LDS)):
+        cfgs = [fleet_config(core, s, *MAIN_SHAPE) for s in range(DIST_FLEET_K)]
+        eng = core.FleetEngine.from_configs(cfgs, spec)
+        runs = {}
+        for label, mesh_arg in (("mesh", mesh), ("plain", None)):
+            reset_counts(kernel)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, recs = eng.run(DIST_FLEET_SLOTS, mesh=mesh_arg)
+            torch.cuda.synchronize()
+            runs[label] = {"ms": (time.perf_counter() - t) * 1e3,
+                           "launches": dict(kernel.launches),
+                           "tree": {"state": bridge.to_numpy(state),
+                                    "recs": bridge.to_numpy(recs)}}
+        if runs["mesh"]["launches"] != runs["plain"]["launches"]:
+            fail(f"fleet {name} with a mesh: launches {runs['mesh']['launches']}, without "
+                 f"{runs['plain']['launches']}")
+
+        def leaves(tree, prefix=""):
+            if isinstance(tree, dict):
+                for k, v in tree.items():
+                    yield from leaves(v, f"{prefix}/{k}")
+            elif tree is not None:
+                yield prefix, tree
+
+        got, want = dict(leaves(runs["mesh"]["tree"])), dict(leaves(runs["plain"]["tree"]))
+        bad = [k for k in want if not np.array_equal(got[k], want[k])]
+        if bad or set(got) != set(want):
+            fail(f"fleet {name} with a mesh differs from run(): {bad[:5]}")
+        out[name] = {"k": DIST_FLEET_K, "slots": DIST_FLEET_SLOTS, "bit_equal": True,
+                     "launches": runs["mesh"]["launches"], "mesh_ms": runs["mesh"]["ms"],
+                     "plain_ms": runs["plain"]["ms"]}
+    return out
+
+
+def phase_distributed(torch, train, steps, optim, models, configs, core, bridge,
+                      kernels, kernel) -> dict:
+    """Phase 13: the world-1 NCCL group (started in the process through an
+    in-process store, or the one phase 11's ``train.main`` started), a
+    (1, 1) host mesh and a (1, 1, 1) pod mesh on the card; (a) the int8
+    cross-pod sum, (b) ``train.main`` under the mesh against the unsharded
+    step, (c) sharded fleets against ``run()``. (d): a pod mesh of one rank
+    has no pod peers, so (a) shows the code path on the card; the numerics
+    across ranks are the CPU tests' (tests/test_torch_distributed.py)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.parallel import collectives, sharding
+    lmesh.ensure_process_group()
+    if dist.get_world_size() != 1:
+        fail(f"phase 13 needs a world of 1, the process group has {dist.get_world_size()}")
+    mesh = lmesh.make_host_mesh()
+    pod_mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+    backend = str(dist.get_backend())
+    if "nccl" not in backend:
+        fail(f"phase 13: the process group's backend is {backend}, not NCCL")
+    out = {"world": dist.get_world_size(), "backend": backend,
+           "mesh": {"shape": list(mesh.shape), "names": list(mesh.mesh_dim_names)},
+           "pod_mesh": {"shape": list(pod_mesh.shape), "names": list(pod_mesh.mesh_dim_names)}}
+    t = time.perf_counter()
+    out["cross_pod"] = dist_cross_pod(torch, collectives, sharding, pod_mesh)
+    out["cross_pod_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["train"] = dist_train(torch, train, steps, optim, models, configs, sharding, kernels,
+                              mesh)
+    out["train_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["fleet"] = dist_fleet(torch, core, kernel, bridge, mesh)
+    out["fleet_s"] = time.perf_counter() - t
     return out
 
 
@@ -2353,6 +2632,12 @@ def main(argv=None) -> int:
           f"%), {prof['device_launches']} launches, wgmma {prof['match_ms']:.3f} ms in "
           f"{prof['match_count']} launches; spans (events) {json.dumps(prof['spans'])}; "
           f"top {json.dumps(prof['top'])}")
+    pm = trn["profile_mesh"]
+    print(f"phase 11 the same step under the (1, 1) mesh: {pm['unprofiled_step_ms']:.2f} ms "
+          f"(median of {json.dumps(pm['step_ms'])}; unsharded {prof['unprofiled_step_ms']:.2f}, "
+          f"median of {json.dumps(prof['step_ms'])}), device busy {pm['device_busy_ms']:.2f} ms "
+          f"(unsharded {prof['device_busy_ms']:.2f}), {pm['device_launches']} launches, NCCL "
+          f"kernels {pm['match_ms']:.3f} ms in {pm['match_count']} [{smi}]")
     for key in ("card_vs_cpu", "resume", "attention", "scan"):
         print(f"phase 11 {key}: {json.dumps(trn[key])}")
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s")
@@ -2360,6 +2645,34 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     fam = phase_families(torch, serve, steps, models, configs, all_kernels)
     report_families(fam, smi, t0)
+
+    t0 = time.perf_counter()
+    from repro_torch import optim
+    from repro_torch.launch import train
+    dst = phase_distributed(torch, train, steps, optim, models, configs, core, bridge,
+                            all_kernels, kernel)
+    print(f"phase 13 world {dst['world']}, backend {dst['backend']}, meshes "
+          f"{json.dumps(dst['mesh'])} and {json.dumps(dst['pod_mesh'])}")
+    for dt, r in dst["cross_pod"].items():
+        print(f"phase 13 (a) int8 cross-pod sum {dt} {r['shape']}: bit-equal to the plain pack, "
+              f"{r['all_gathers']} all-gathers, {r['wire_bytes']} bytes sent, {r['ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.4f} ms) [{smi}]")
+    tr = dst["train"]
+    print(f"phase 13 (b) train.main minitron-4b {tr['layers']} layers B 16 x 128 under the mesh: "
+          f"{tr['mesh_ms_per_step']:.2f} ms per step, unsharded {tr['unsharded_ms_per_step']:.2f} "
+          f"ms (steps 2-{tr['steps']}, deterministic algorithms), losses and parameters bit-equal; "
+          f"collectives per step {json.dumps(tr['per_step'])} [{smi}]")
+    for label, pr in tr["profile"].items():
+        print(f"phase 13 (b) one profiled {label} step: device busy {pr['device_busy_ms']:.2f} ms "
+              f"of {pr['wall_ms']:.2f} ms, {pr['device_launches']} launches, NCCL kernels "
+              f"{pr['match_ms']:.3f} ms in {pr['match_count']}; top {json.dumps(pr['top'])}")
+    for name, r in dst["fleet"].items():
+        print(f"phase 13 (c) fleet {name} K {r['k']} x {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}, "
+              f"{r['slots']} slots: bit-equal to run(), launches {json.dumps(r['launches'])}, "
+              f"{r['mesh_ms']:.1f} ms with the mesh, {r['plain_ms']:.1f} ms without [{smi}]")
+    print("phase 13 (d) a pod mesh of one rank has no pod peers: (a) runs the NCCL path; the "
+          "numerics across ranks are the CPU tests'")
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s")
 
     for mod in ("jax", "repro"):
         if mod in sys.modules:
@@ -2516,8 +2829,10 @@ def main(argv=None) -> int:
             "scan_ptxas": scan_regs, "decode_ptxas": decode_regs, "simt_ptxas": simt_regs,
             "lm_kernels": lm_kres,
             "serve": serve_res, "lm_parity": lm_parity, "fleet": fleet, "train": trn,
-            "families": fam},
+            "families": fam, "distributed": dst},
             indent=1))
+    import torch.distributed as dist
+    dist.destroy_process_group()
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Fleet engine: K network slices scheduled together on one device.
+"""Fleet engine: K network slices scheduled together on one device, or
+sharded over the ranks of a mesh.
 Counterpart of ``repro.core.fleet``.
 
 An operator runs many incremental-learning jobs at once, one slice per
@@ -25,13 +26,17 @@ the host one slice at a time and cannot join one. Through
     and each group runs its policies once (``datasche._by_group``).
 
 ``from_configs`` / ``from_ragged_configs`` are thin shims over
-``from_jobs``.
+``from_jobs``. ``run(mesh=)`` shards the K slices over the ranks of a mesh
+axis (``launch.mesh``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence
 
+import torch
+
+from ..parallel.sharding import all_gather, axis_sizes
 from .datasche import (COLLECTION_POLICIES, DS, SWITCHED, SWITCHED_NOAID,
                        TRAINING_POLICIES, AlgoSpec, PolicyPlan, SlotRecord,
                        policy_plan, stacked_run, stacked_step)
@@ -40,6 +45,14 @@ from .types import (CocktailConfig, Decision, DeviceLike, Heterogeneity,
                     Multipliers, NetworkState, QueueState, SchedulerState,
                     ShapeConfig, SliceParams, init_state, resolve_device,
                     stack_slice_params, stack_trees, tree_map, unstack)
+
+def _gather_slices(leaf: Optional[torch.Tensor], dim: int, group):
+    """Every rank's block of slices, concatenated along ``dim`` in rank
+    order."""
+    if leaf is None:
+        return None
+    return all_gather(leaf, dim, group)
+
 
 def slice_records(recs: SlotRecord, k: int) -> SlotRecord:
     """Slice k's (T,) per-slot trace out of time-major (T, K) fleet records."""
@@ -245,13 +258,29 @@ class FleetEngine:
             mesh=None, axis_name: str = "data"
             ) -> tuple[SchedulerState, SlotRecord]:
         """Run the whole fleet for ``n_slots``; returns (stacked final state
-        (K, ...), records (T, K)). ``mesh`` (sharding K over devices) has no
-        one-card counterpart and raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                f"FleetEngine.run(mesh=..., axis_name={axis_name!r}): sharding the "
-                "slice axis over devices is not ported (ROADMAP.md Queue 1 item 5, "
-                "parallel/ and launch tooling); run the fleet on one device")
+        (K, ...), records (T, K)).
+
+        With ``mesh`` (a ``DeviceMesh`` of the fleet's device type), the K
+        slices are sharded over ``mesh[axis_name]`` (K must divide by its
+        size): each rank runs its contiguous block of K / n slices, with its
+        own policy groups (one matcher launch a group a slot, per rank), and
+        the final states and the records are all-gathered along K, so every
+        rank returns the stacked (K, ...) result."""
         if state is None:
             state = self.init()
-        return stacked_run(self.shape, self.spec, n_slots, state, self.params, self.plan)
+        if mesh is None:
+            return stacked_run(self.shape, self.spec, n_slots, state, self.params, self.plan)
+        from ..launch.mesh import shard_leading_axis
+        n = axis_sizes(mesh)[axis_name]
+        if self.n_slices % n:
+            raise ValueError(f"{self.n_slices} slices do not divide over the {n} ranks of "
+                             f"mesh axis {axis_name!r}")
+        r, b = mesh.get_local_rank(axis_name), self.n_slices // n
+        plan = None if self.plan is None else PolicyPlan(
+            *(ids[r * b:(r + 1) * b] for ids in self.plan))
+        state, recs = stacked_run(self.shape, self.spec, n_slots,
+                                  shard_leading_axis(state, mesh, axis_name),
+                                  shard_leading_axis(self.params, mesh, axis_name), plan)
+        group = mesh.get_group(axis_name)
+        return (tree_map(lambda leaf: _gather_slices(leaf, 0, group), state),
+                tree_map(lambda leaf: _gather_slices(leaf, 1, group), recs))

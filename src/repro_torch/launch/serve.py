@@ -10,6 +10,8 @@ cross-attention cache.
 
 Runs on the CUDA card (weights drawn there from ``--seed``, stored in the
 compute dtype); ``--device cpu`` runs the plain PyTorch versions instead.
+It builds the host mesh and serves inside its context, as the JAX entry
+point does; serving is not sharded (every rank holds the whole model).
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import torch
 
 from ..configs import get_config, reduced as make_reduced
 from ..models import build_model, encdec
+from ..parallel.sharding import mesh_context
+from .mesh import local_device, make_host_mesh
 from .steps import make_serve_step
 
 
@@ -45,7 +49,13 @@ def main(argv=None):
         cfg = make_reduced(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    model = build_model(cfg, device=args.device)
+    mesh = make_host_mesh(device=args.device)
+    with mesh_context(mesh):
+        return _serve(args, cfg, mesh)
+
+
+def _serve(args, cfg, mesh):
+    model = build_model(cfg, device=local_device(mesh))
     params = model.init(args.seed, dtype=getattr(torch, cfg.compute_dtype))
     cache = model.init_cache(args.batch, args.prompt_len + args.gen)
     if cfg.family == "encdec":

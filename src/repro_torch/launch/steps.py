@@ -3,15 +3,23 @@
 The Cocktail integration point is the ``weights`` field of the batch: the
 scheduler's per-EC sample counts become per-sample weights, so the weighted
 mean loss implements the parameter server's |D_j|-weighted aggregation
-(paper eq. 15) exactly. One card is one data-parallel group: no mesh.
+(paper eq. 15) exactly. Under a mesh (``parallel.mesh_context``) each
+data-parallel rank holds one block of the global batch's rows (with as many
+ECs as ranks, rank r holds EC r's rows) and its blocks of the sharded
+parameters: the ranks' losses are divided by the global denominator, so
+the sum of their gradients, which the gathers' reduce-scatters and the
+replicated leaves' all-reduces form, is the gradient of the global weighted
+mean.
 """
 from __future__ import annotations
 
 import torch
 
 from ..models import ModelApi
+from ..models.layers import loss_denominator
 from ..optim import AdamWConfig, AdamWState, cosine_schedule
 from ..optim.adamw import adamw_update_
+from ..parallel.sharding import all_reduce_, batch_groups, current_mesh, sharding_of
 
 
 def make_train_step(model: ModelApi, opt_cfg: AdamWConfig, total_steps: int = 10_000,
@@ -25,18 +33,38 @@ def make_train_step(model: ModelApi, opt_cfg: AdamWConfig, total_steps: int = 10
     is that of the JAX step's ``bf16_comms`` default, taken to float32 by
     the cast's backward; the JAX package's bf16 scatter into the embedding
     gradient accumulates in float32 here. Turns on ``requires_grad`` of the
-    parameters."""
+    parameters.
+
+    Under a mesh, ``params`` holds this rank's parameter blocks
+    (``parallel.shard_params``) and ``batch`` this rank's rows: the loss
+    denominator sum(valid * w) is summed over the batch axes before the
+    forward and divides each rank's sum(w * nll); a sharded leaf's gradient
+    is reduce-scattered over ``data`` by its gather's backward and summed
+    over the other batch axes, a replicated leaf's is summed over every
+    batch axis; the reported loss is the global one."""
     if warmup_steps < 0:
         warmup_steps = max(min(100, total_steps // 10), 1)
 
     def train_step(params, opt_state: AdamWState, batch):
+        mesh = current_mesh()
         params.requires_grad_(True)
         named = dict(params.named_parameters())
+        if mesh is not None:
+            denom = loss_denominator(batch["labels"], batch.get("weights"))
+            batch = {**batch, "denom": all_reduce_(denom, batch_groups(mesh))}
         loss, aux = model.loss(params, batch)
         grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+        loss = loss.detach()
+        if mesh is not None:
+            for k, g in grads.items():
+                g = grads[k] = g.contiguous()
+                sh = sharding_of(named[k])
+                sharded = sh is not None and sh.dim is not None
+                all_reduce_(g, batch_groups(mesh, skip=("data",) if sharded else ()))
+            all_reduce_(loss, batch_groups(mesh))
         lr_scale = cosine_schedule(opt_state.step, total_steps, warmup_steps)
         opt_state, om = adamw_update_(named, grads, opt_state, opt_cfg, lr_scale)
-        return params, opt_state, {"loss": loss.detach(), "tokens": aux["tokens"], **om}
+        return params, opt_state, {"loss": loss, "tokens": aux["tokens"], **om}
 
     return train_step
 

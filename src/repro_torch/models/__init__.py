@@ -12,6 +12,8 @@ Batch dict convention:
   labels  (B, S) integer, -1 = masked   training (``loss``)
   weights (B,) float32                  optional Cocktail per-sample weights
                                         (the |D_j| aggregation of eq. 15)
+  denom   () float32                    optional global loss denominator
+                                        (a data-parallel rank's batch)
   patches (B, P, D) float               vlm only (stub frontend)
   frames  (B, enc_ctx, D) float         encdec only (stub frontend)
 """
@@ -72,13 +74,15 @@ def new_model(cfg: ArchConfig, device, dtype: Optional[torch.dtype] = None) -> n
 def _lm_loss(fwd):
     """(model, batch) -> (weighted mean CE, {"ce", "tokens"}): the
     counterpart of the JAX package's ``_lm_loss``; the VLM's image prefix
-    positions get label -1."""
+    positions get label -1. ``batch["denom"]``, where set, is the global
+    denominator of a data-parallel rank's rows (``launch/steps.py``)."""
     def loss_fn(model, batch):
         logits, labels = fwd(model, batch), batch["labels"]
         if logits.shape[1] != labels.shape[1]:  # vlm: image prefix positions
             pad = labels.new_full((labels.shape[0], logits.shape[1] - labels.shape[1]), -1)
             labels = torch.cat([pad, labels], dim=1)
-        loss, denom = weighted_cross_entropy(logits, labels, batch.get("weights"))
+        loss, denom = weighted_cross_entropy(logits, labels, batch.get("weights"),
+                                             denom=batch.get("denom"))
         return loss, {"ce": loss, "tokens": denom}
     return loss_fn
 

@@ -139,7 +139,7 @@ def forward(cfg: ArchConfig, model: EncDecLM, tokens: torch.Tensor, frames: torc
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     enc_pos = _positions(b, enc_out.shape[1], tokens.device)
-    x = L.cast(model.embed[tokens.long()], L.compute_dtype(cfg))
+    x = L.embed_rows(model.embed, tokens, L.compute_dtype(cfg))
 
     def layer_fn(x, p, layer):
         x = _attn_apply(cfg, x, p, "", positions, None, positions, _CAUSAL, impl=impl)
@@ -174,9 +174,11 @@ def prefill_cross(cfg: ArchConfig, model: EncDecLM, frames: torch.Tensor, cache:
     keys and values into the cache (in place; returned)."""
     enc_out = encode(cfg, model, frames, impl)
     cdt = L.compute_dtype(cfg)
+    shardings = L.layer_shardings(model.dec_blocks)
     for layer, p in enumerate(L.unbind_layers(model.dec_blocks)):
-        cache["cross_k"][layer] = _proj(enc_out, L.cast(p["cross_wk"], cdt))
-        cache["cross_v"][layer] = _proj(enc_out, L.cast(p["cross_wv"], cdt))
+        p = L.cast_params({k: p[k] for k in ("cross_wk", "cross_wv")}, cdt, shardings)
+        cache["cross_k"][layer] = _proj(enc_out, p["cross_wk"])
+        cache["cross_v"][layer] = _proj(enc_out, p["cross_wv"])
     return cache
 
 
@@ -186,13 +188,14 @@ def decode_step(cfg: ArchConfig, model: EncDecLM, cache: dict, tokens: torch.Ten
     """tokens (B, 1) -> (logits (B, 1, V), cache); the cache is updated in
     place and returned."""
     cdt = L.compute_dtype(cfg)
-    x = L.cast(model.embed[tokens.long()], cdt)
+    x = L.embed_rows(model.embed, tokens, cdt)
     b = x.shape[0]
     pos = int(cache["pos"])
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     enc_pos = _positions(b, cfg.enc_ctx, x.device)
+    shardings = L.layer_shardings(model.dec_blocks)
     for layer, p in enumerate(L.unbind_layers(model.dec_blocks)):
-        p = L.cast_params(p, cdt)
+        p = L.cast_params(p, cdt, shardings)
         kc, vc, pc = cache["k"][layer], cache["v"][layer], cache["kv_pos"][layer]
         slot = min(pos, kc.shape[1] - 1)
         h = L.rms_norm(x, p["norm"], cfg.norm_eps)

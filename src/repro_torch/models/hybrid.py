@@ -112,12 +112,13 @@ def forward(cfg: ArchConfig, model: HybridLM, tokens: torch.Tensor,
     """tokens (B, S) -> logits (B, S, V); differentiable, with per-group
     recompute under ``cfg.remat``."""
     cdt = L.compute_dtype(cfg)
-    x = L.cast(model.embed[tokens.long()], cdt)
+    x = L.embed_rows(model.embed, tokens, cdt)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
 
     def shared(x, g):
-        sp = L.cast_params(dict(model.shared_attn), cdt)
+        sp = L.cast_params(dict(model.shared_attn), cdt,
+                           L.layer_shardings(model.shared_attn, stacked=False))
         return _shared_attn_apply(cfg, x, sp, positions, impl=impl)
 
     x = L.apply_layers(cfg, model.blocks, x,
@@ -152,15 +153,17 @@ def decode_step(cfg: ArchConfig, model: HybridLM, cache: dict, tokens: torch.Ten
     """tokens (B, 1) -> (logits (B, 1, V), cache); the cache is updated in
     place and returned."""
     cdt = L.compute_dtype(cfg)
-    x = L.cast(model.embed[tokens.long()], cdt)
+    x = L.embed_rows(model.embed, tokens, cdt)
     b = x.shape[0]
     pos = int(cache["pos"])
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     k = cfg.hybrid_attn_every
-    sp = L.cast_params(dict(model.shared_attn), cdt)
+    sp = L.cast_params(dict(model.shared_attn), cdt,
+                       L.layer_shardings(model.shared_attn, stacked=False))
+    shardings = L.layer_shardings(model.blocks)
     for layer, p in enumerate(L.unbind_layers(model.blocks)):
         state = {"conv": cache["conv"][layer], "h": cache["h"][layer]}
-        x, new = ssm.mamba2_block(cfg, x, L.cast_params(p, cdt), state=state, impl=impl)
+        x, new = ssm.mamba2_block(cfg, x, L.cast_params(p, cdt, shardings), state=state, impl=impl)
         cache["conv"][layer] = new["conv"]
         cache["h"][layer] = new["h"]
         if (layer + 1) % k == 0:

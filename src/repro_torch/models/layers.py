@@ -10,6 +10,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..parallel.sharding import embed_rows, gather_fsdp, gather_params, sharding_of
+
 
 def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t if t.dtype == dtype else t.to(dtype)
@@ -37,13 +39,30 @@ def unbind_layers(blocks) -> list[dict[str, torch.Tensor]]:
     return [{k: views[layer] for k, views in per_leaf.items()} for layer in range(n)]
 
 
-def cast_params(p: dict[str, torch.Tensor], dtype: torch.dtype) -> dict[str, torch.Tensor]:
+def cast_params(p: dict[str, torch.Tensor], dtype: torch.dtype,
+                shardings: Optional[dict] = None) -> dict[str, torch.Tensor]:
     """One layer's parameters in ``dtype`` (the JAX package casts the
     parameters to the compute type on every call; a model stored in that
     type is not cast again). Cast per layer, inside the layer's recompute
     region under remat, so no whole-model copy in ``dtype`` is held; the
-    cast's backward gives the float32 gradient of the cast parameters."""
-    return {k: cast(v, dtype) for k, v in p.items()}
+    cast's backward gives the float32 gradient of the cast parameters.
+    The leaves with a sharding in ``shardings`` (name -> the layer view's
+    ``Sharding``) are then gathered whole (``gather_params``: one collective
+    a layer, the cast type on the wire, the gradients reduce-scattered)."""
+    return gather_params({k: cast(v, dtype) for k, v in p.items()}, shardings or {})
+
+
+def layer_shardings(blocks, stacked: bool = True) -> dict:
+    """name -> the ``Sharding`` of one layer's view of each stacked leaf of
+    ``blocks`` (of each leaf, where not ``stacked``); sharded models only."""
+    return {k: sh.per_layer() if stacked else sh
+            for k, v in blocks.items() if (sh := sharding_of(v)) is not None}
+
+
+def weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A top-level weight (head, shared block) in ``dtype``, gathered whole
+    where it is sharded."""
+    return gather_fsdp(cast(w, dtype), sharding_of(w))
 
 
 def apply_layers(cfg, blocks, x: torch.Tensor, layer_fn: Callable, group: int = 1,
@@ -51,16 +70,19 @@ def apply_layers(cfg, blocks, x: torch.Tensor, layer_fn: Callable, group: int = 
     """x through every layer of ``blocks`` (a dict of stacked (L, ...)
     leaves): ``layer_fn(x, p, layer)`` gets the layer's parameters cast to
     the compute type, and ``group_end(x, g)``, where given, runs after each
-    ``group`` consecutive layers (the hybrid's shared block). When the
+    ``group`` consecutive layers (the hybrid's shared block). Sharded
+    leaves are gathered right after the cast (``cast_params``). When the
     forward is recorded for a backward and ``cfg.remat`` is set, each group
     is recomputed in the backward (``torch.utils.checkpoint``, as the JAX
-    package's ``jax.checkpoint`` of the scanned body), the casts included."""
+    package's ``jax.checkpoint`` of the scanned body), the casts and the
+    gathers included."""
     cdt = compute_dtype(cfg)
     # recorded for a backward: grad mode on and a parameter that requires
     # grad (serving models have none)
     remat = cfg.remat and torch.is_grad_enabled() and any(
         p.requires_grad for p in blocks.values())
     per_layer = unbind_layers(blocks)
+    shardings = layer_shardings(blocks)
     names = tuple(per_layer[0])
     for g0 in range(0, len(per_layer), group):
         layers = per_layer[g0:g0 + group]
@@ -68,7 +90,7 @@ def apply_layers(cfg, blocks, x: torch.Tensor, layer_fn: Callable, group: int = 
         def run(x, *leaves, g0=g0, n=len(layers)):
             for i in range(n):
                 p = dict(zip(names, leaves[i * len(names):(i + 1) * len(names)]))
-                x = layer_fn(x, cast_params(p, cdt), g0 + i)
+                x = layer_fn(x, cast_params(p, cdt, shardings), g0 + i)
             return x if group_end is None else group_end(x, g0 // group)
 
         leaves = [v for p in layers for v in p.values()]
@@ -157,12 +179,27 @@ def embed_fill_(out: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     return out.copy_(_normal(out.shape, gen, out.device).mul_(0.02))
 
 
+def loss_denominator(labels: torch.Tensor, weights: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """sum of valid * w over the batch (the count of valid labels without
+    weights): the weighted mean's denominator, from labels and weights
+    only, so a data-parallel step sums it over the ranks before its forward."""
+    valid = labels >= 0
+    if weights is not None:
+        return torch.sum(valid * weights[:, None])
+    return torch.sum(valid).float()
+
+
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                            weights: Optional[torch.Tensor] = None,
-                           logit_softcap: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+                           logit_softcap: float = 0.0,
+                           denom: Optional[torch.Tensor] = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token CE in float32 with optional per-SAMPLE weights (the
     Cocktail |D_j| aggregation of eq. 15 folds into these weights). Returns
-    (loss, n_tokens); labels < 0 are masked out."""
+    (loss, n_tokens); labels < 0 are masked out. ``denom`` (a data-parallel
+    rank's global ``loss_denominator``) replaces the batch's own, so the
+    ranks' losses sum to the global weighted mean."""
     if logit_softcap > 0:
         logits = softcap(logits, logit_softcap)
     logits = logits.float()
@@ -173,7 +210,6 @@ def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     nll = (lse - ll) * valid
     if weights is not None:
         nll = nll * weights[:, None]
-        denom = torch.sum(valid * weights[:, None])
-    else:
-        denom = torch.sum(valid).float()
+    if denom is None:
+        denom = loss_denominator(labels, weights)
     return torch.sum(nll) / torch.clamp(denom, min=1.0), denom

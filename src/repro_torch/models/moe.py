@@ -4,9 +4,13 @@
 The JAX package's function is ported as it is, capacity-bounded: token t's
 k-th choice goes to slot (expert e, rank) where the rank is its place among
 e's assignments in (token, k) order, and assignments at rank >= C are
-dropped (zero output). A dropless MoE computes another function. One card is
-one data-parallel group (the JAX package's G = 1), so the rank runs over all
-B x S tokens of a call. Dispatch is ``index_add`` into an (E C + 1, D)
+dropped (zero output). A dropless MoE computes another function. The rank
+runs over the B x S tokens of a call: without a mesh all of them (the JAX
+package's G = 1); under a mesh a data-parallel rank's own rows, which is the
+JAX package's shard-local grouping with G = dp and the capacity computed
+from a group's tokens (``parallel.sharding.local_rows`` raises where the
+global batch does not divide into the ranks, where the JAX package would
+fall back to G = 1). Dispatch is ``index_add`` into an (E C + 1, D)
 buffer (the last row takes the dropped assignments), the expert products are
 batched ``matmul`` over E, and the combine is a gather; the JAX package
 computes these outside any Pallas kernel too.

@@ -191,7 +191,7 @@ def mamba2_block(cfg: ArchConfig, x, p, state=None, impl: str = "auto"):
 def _logits(cfg: ArchConfig, model: MambaLM, x: torch.Tensor) -> torch.Tensor:
     cdt = L.compute_dtype(cfg)
     x = L.rms_norm(x, L.cast(model.final_norm, cdt), cfg.norm_eps)
-    head = L.cast(model.embed, cdt).t() if cfg.tie_embeddings else L.cast(model.head, cdt)
+    head = L.weight(model.embed, cdt).t() if cfg.tie_embeddings else L.weight(model.head, cdt)
     return torch.matmul(x, head)
 
 
@@ -200,7 +200,7 @@ def forward(cfg: ArchConfig, model: MambaLM, tokens: torch.Tensor,
     """tokens (B, S) -> logits (B, S, V). Differentiable as the dense
     ``forward`` is; on the card the scan's kernel has no backward yet, so a
     recorded forward raises there (``kernels/mamba_scan/ops.py``)."""
-    x = L.cast(model.embed[tokens.long()], L.compute_dtype(cfg))
+    x = L.embed_rows(model.embed, tokens, L.compute_dtype(cfg))
     x = L.apply_layers(cfg, model.blocks, x,
                        lambda x, p, layer: mamba1_block(cfg, x, p, impl=impl)[0])
     return _logits(cfg, model, x)
@@ -224,10 +224,11 @@ def decode_step(cfg: ArchConfig, model: MambaLM, cache: dict, tokens: torch.Tens
     """tokens (B, 1) -> (logits (B, 1, V), cache); the cache is updated in
     place and returned."""
     cdt = L.compute_dtype(cfg)
-    x = L.cast(model.embed[tokens.long()], cdt)
+    x = L.embed_rows(model.embed, tokens, cdt)
+    shardings = L.layer_shardings(model.blocks)
     for layer, p in enumerate(L.unbind_layers(model.blocks)):
         state = {"conv": cache["conv"][layer], "h": cache["h"][layer]}
-        x, new = mamba1_block(cfg, x, L.cast_params(p, cdt), state=state, impl=impl)
+        x, new = mamba1_block(cfg, x, L.cast_params(p, cdt, shardings), state=state, impl=impl)
         cache["conv"][layer] = new["conv"]
         cache["h"][layer] = new["h"]
     cache["pos"] = int(cache["pos"]) + 1

@@ -175,7 +175,7 @@ def block_apply(cfg: ArchConfig, x, p, positions, spec: AttnSpec, impl: str = "a
 
 def _embed(cfg: ArchConfig, model: DenseLM, tokens: torch.Tensor,
            extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    x = L.cast(model.embed[tokens.long()], L.compute_dtype(cfg))
+    x = L.embed_rows(model.embed, tokens, L.compute_dtype(cfg))
     if extra_embeds is not None:  # vlm: prepend the patch embeddings
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     if cfg.scale_embed:  # float32 from here on, as the JAX package promotes
@@ -187,7 +187,7 @@ def logits_of(cfg: ArchConfig, model: nn.Module, x: torch.Tensor) -> torch.Tenso
     """Final norm, head (the tied embedding or ``head``) and soft-cap."""
     cdt = L.compute_dtype(cfg)
     x = L.rms_norm(x, L.cast(model.final_norm, cdt), cfg.norm_eps)
-    head = L.cast(model.embed, cdt).t() if cfg.tie_embeddings else L.cast(model.head, cdt)
+    head = L.weight(model.embed, cdt).t() if cfg.tie_embeddings else L.weight(model.head, cdt)
     logits = L.matmul(x, head)
     if cfg.logit_softcap > 0:
         cap = cfg.logit_softcap
@@ -255,10 +255,11 @@ def decode_step(cfg: ArchConfig, model: DenseLM, cache: dict, tokens: torch.Tens
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     specs = attn_specs(cfg)
     group = len(specs)
+    shardings = L.layer_shardings(model.blocks)
     for layer, p in enumerate(L.unbind_layers(model.blocks)):
         i, li = layer % group, layer // group
         spec = specs[i]
-        p = L.cast_params(p, cdt)
+        p = L.cast_params(p, cdt, shardings)
         kc, vc, pc = cache[f"k{i}"][li], cache[f"v{i}"][li], cache[f"kv_pos{i}"][li]
         slots = kc.shape[1]
         slot = pos % slots if spec.window > 0 else min(pos, slots - 1)

@@ -6,15 +6,20 @@ name (``dict(model.named_parameters())``). ``adamw_update_`` writes the
 parameters and the moments in place, a leaf at a time and a chunk of each
 leaf at a time, so the update holds no second copy of any leaf: at full
 width the float32 master weights, both moments and the gradients are most
-of the card's memory. ``adamw_update`` is the functional form (new tensors,
+of the card's memory. Under a mesh the parameters are each rank's blocks
+(``parallel.shard_params``), so the moments ``adamw_init`` makes beside
+them are too (ZeRO), and the clipping norm is that of the global arrays.
+``adamw_update`` is the functional form (new tensors,
 inputs untouched) that the tests hold against the JAX function.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, NamedTuple
+from typing import Any, Mapping, NamedTuple, Optional
 
 import torch
+
+from ..parallel.sharding import all_reduce_, sharding_of
 
 # Elements of a leaf updated at once: bounds the update's temporaries to
 # two float32 chunks (512 MiB) whatever the leaf's size.
@@ -53,10 +58,25 @@ def adamw_init(params) -> AdamWState:
                       v={k: torch.zeros_like(z) for k, z in zeros.items()})
 
 
-def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's sum of squares (float32)."""
-    sq = [torch.dot(g.reshape(-1).float(), g.reshape(-1).float()) for g in grads.values()]
-    return torch.sqrt(torch.stack(sq).sum())
+def global_norm(grads: Mapping[str, torch.Tensor],
+                shardings: Optional[Mapping[str, Any]] = None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's sum of squares (float32).
+
+    Under a mesh (``shardings``: name -> each leaf's ``Sharding``), the
+    norm of the global arrays: a leaf sharded over ``data`` counts the sum
+    of its ranks' squares (one all-reduce over ``data`` for every leaf at
+    once), a replicated leaf counts once; the leaves are then summed in the
+    order of the unsharded norm."""
+    sq = torch.stack([torch.dot(g.reshape(-1).float(), g.reshape(-1).float())
+                      for g in grads.values()])
+    shardings = shardings or {}
+    mesh = next((s.mesh for s in shardings.values() if s is not None), None)
+    if mesh is not None:
+        sharded = torch.tensor([(s := shardings.get(k)) is not None and s.dim is not None
+                                for k in grads], device=sq.device)
+        first = mesh.get_local_rank("data") == 0
+        sq = all_reduce_(torch.where(sharded | first, sq, 0.0), [mesh.get_group("data")])
+    return torch.sqrt(sq.sum())
 
 
 @torch.no_grad()
@@ -68,7 +88,7 @@ def adamw_update_(params, grads: dict, state: AdamWState, cfg: AdamWConfig,
     and dropped from the dict once its leaf is updated. Returns (state with
     the next step count, {"grad_norm"})."""
     named = _named(params)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, {k: sharding_of(named[k]) for k in grads})
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     sf = step.float()

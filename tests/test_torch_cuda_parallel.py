@@ -1,0 +1,38 @@
+"""The port's distribution layer over two CUDA cards with NCCL: the train
+step, a sharded fleet and the int8 cross-pod sum of
+``tests/torch_cuda_world.py``, started by ``torchrun`` with one rank per
+card, each held against the unsharded run on one card. Marked ``cuda``; it
+skips below two cards. Imports nothing of JAX:
+
+    python -m pytest -m cuda tests/test_torch_cuda_parallel.py
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.cuda
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_two_cards_train_step_fleet_and_cross_pod_sum(tmp_path):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    out = tmp_path / "world.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc_per_node", "2", str(ROOT / "tests" / "torch_cuda_world.py"),
+                        str(out)], capture_output=True, text=True, timeout=900, env=env)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    result = json.loads(out.read_text())
+    assert result["world"] == 2 and "nccl" in result["backend"]
+    assert result["train_f32"]["err_of_leaf_scale"]["params"] <= 1e-4
+    assert result["fleet"]["within_rtol_1e-6"] and result["cross_pod"]["bit_equal"]

@@ -21,6 +21,7 @@ import functools
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 from unittest import mock
 
@@ -487,9 +488,12 @@ def test_from_params_validation():
 
 
 def test_run_with_a_mesh_raises():
-    eng = T.FleetEngine.from_configs(_configs(T)[:1], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        eng.run(1, mesh=object())
+    """A mesh axis whose size does not divide K raises before any slot (the
+    sharded run itself: tests/test_torch_distributed.py)."""
+    eng = T.FleetEngine.from_configs(_configs(T), device="cpu")  # K = 3
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(2, 1))
+    with pytest.raises(ValueError, match="3 slices do not divide over the 2 ranks"):
+        eng.run(1, mesh=mesh)
 
 
 def test_fleet_needs_a_card_unless_asked_for_the_cpu():

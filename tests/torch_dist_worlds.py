@@ -1,0 +1,284 @@
+"""Spawned ``torch.distributed`` worlds for the port's distributed tests.
+
+``World(n, task, payload, tmp_path, timeout)`` starts ``n`` processes
+(``torch.multiprocessing``, spawn), one rank each, joined through gloo and a
+``FileStore`` under ``tmp_path``; rank r runs ``TASKS[task](payload)`` and
+pickles its result, and the world's ``result()`` returns the ranks' results
+in rank order. A rank that raises or exits non-zero fails ``result()`` with
+its traceback, and a world that has not finished within ``timeout`` seconds
+of its start is killed and fails it too. Each rank runs one intra-op
+thread, so several worlds can run at once.
+
+This module imports torch and the port only, so a rank never imports JAX;
+the tests compute their JAX references in the parent process.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import datetime
+import io
+import pickle
+import time
+import uuid
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+from torch.distributed.device_mesh import init_device_mesh
+
+# --------------------------------------------------------------------------
+# The world
+# --------------------------------------------------------------------------
+
+
+class World:
+    """A started world; ``result()`` waits for it."""
+
+    def __init__(self, n: int, task: str, payload, tmp_path, timeout: float):
+        self.n, self.task, self.timeout = n, task, timeout
+        self.work = Path(tmp_path) / f"{task}-{n}-{uuid.uuid4().hex[:8]}"
+        self.work.mkdir(parents=True)
+        self.deadline = time.monotonic() + timeout
+        self.ctx = mp.start_processes(_entry, args=(n, str(self.work), task, payload),
+                                      nprocs=n, join=False, start_method="spawn")
+
+    def result(self) -> list:
+        try:
+            while not self.ctx.join(timeout=max(0.1, self.deadline - time.monotonic())):
+                if time.monotonic() >= self.deadline:
+                    raise TimeoutError(f"the world of {self.n} ranks ({self.task}) did not "
+                                       f"finish within {self.timeout} s")
+        finally:
+            for p in self.ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        out = []
+        for r in range(self.n):
+            with open(self.work / f"rank{r}.pkl", "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def _entry(rank: int, n: int, work: str, task: str, payload) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(f"{work}/store", n), rank=rank,
+                            world_size=n, timeout=datetime.timedelta(seconds=60))
+    try:
+        result = TASKS[task](payload)
+        with open(f"{work}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(result, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _np(t):
+    return t.detach().float().numpy() if t.dtype == torch.bfloat16 else t.detach().numpy()
+
+
+# --------------------------------------------------------------------------
+# int8 cross-pod sum
+# --------------------------------------------------------------------------
+
+def int8_sum(payload) -> dict:
+    """A (pod 2, data 4, model 1) mesh: each rank packs and sums its pod's
+    partial of every leaf (``payload``: name -> ((n_pod, ...) float32
+    partials, dtype name))."""
+    from repro_torch.parallel.collectives import (_int8_pack, cross_pod_compressed_allreduce,
+                                                  cross_pod_sum_partials)
+    mesh = init_device_mesh("cpu", (2, 4, 1), mesh_dim_names=("pod", "data", "model"))
+    flat = init_device_mesh("cpu", (dist.get_world_size(), 1), mesh_dim_names=("data", "model"))
+    pod = mesh.get_local_rank("pod")
+    out = {}
+    for name, (parts, dtype) in payload.items():
+        x = torch.as_tensor(parts[pod]).to(getattr(torch, dtype))
+        q, scale = _int8_pack(x)
+        summed = cross_pod_sum_partials({"x": x}, mesh)["x"]
+        stacked = torch.as_tensor(parts.reshape(-1, *parts.shape[2:])).to(x.dtype)
+        allreduced = cross_pod_compressed_allreduce([stacked], mesh)[0]
+        untouched = cross_pod_sum_partials({"x": x}, flat)["x"]
+        out[name] = {"q": q.numpy(), "scale": scale.numpy(), "sum": _np(summed),
+                     "sum_dtype": str(summed.dtype), "allreduce": _np(allreduced),
+                     "no_pod_is_identity": untouched is x}
+    return out
+
+
+# --------------------------------------------------------------------------
+# Train steps
+# --------------------------------------------------------------------------
+
+def train_steps(cases) -> list:
+    """One train step of each case (dict: cfg fields, weights, batch, mesh
+    shape and names, style) on this rank's blocks and rows: the metrics,
+    this rank's parameter and moment blocks with each leaf's sharded dim,
+    the MoE routing of each call, and the collectives issued."""
+    from repro_torch.configs import ArchConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model, moe, new_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel import sharding
+
+    out = []
+    for case in cases:
+        mesh = init_device_mesh("cpu", case["mesh_shape"], mesh_dim_names=case["mesh_names"])
+        cfg = ArchConfig(**case["cfg"])
+        api = build_model(cfg, device="cpu")
+        model = new_model(cfg, "cpu")
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in case["weights"].items()})
+        with sharding.mesh_context(mesh, case["style"]):
+            sharding.shard_params(model, mesh)
+            opt = adamw_init(model)
+            batch = {k: sharding.local_rows(torch.as_tensor(v), mesh)
+                     for k, v in case["batch"].items()}
+            sharding.reset_comm_counts()
+            with moe.recording_routing() as log:
+                model, opt, met = make_train_step(api, AdamWConfig(), total_steps=10)(
+                    model, opt, batch)
+        named = dict(model.named_parameters())
+        dims = {k: sharding.sharding_of(p).dim for k, p in named.items()}
+        out.append({
+            "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+            "tokens": float(met["tokens"]), "dims": dims,
+            "params": {k: p.detach().numpy() for k, p in named.items()},
+            "m": {k: t.numpy() for k, t in opt.m.items()},
+            "v": {k: t.numpy() for k, t in opt.v.items()},
+            "routing": [(i.numpy(), kept.numpy()) for i, kept in log],
+            "comm": dict(sharding.comm_counts),
+        })
+    return out
+
+
+def moe_dispatch(payload) -> dict:
+    """``moe_ffn`` under a (world, 1) mesh on this rank's rows of x."""
+    from repro_torch.configs import ArchConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding
+    cfg = ArchConfig(**payload["cfg"])
+    mesh = make_host_mesh(device="cpu")
+    with sharding.mesh_context(mesh):
+        x = sharding.local_rows(torch.as_tensor(payload["x"]), mesh)
+        with moe.recording_routing() as log:
+            y = moe.moe_ffn(cfg, x, {k: torch.as_tensor(v) for k, v in payload["p"].items()})
+    (idx, kept), = log
+    return {"y": y.numpy(), "idx": idx.numpy(), "kept": kept.numpy(),
+            "capacity": moe.capacity(cfg, x.shape[0] * x.shape[1])}
+
+
+# --------------------------------------------------------------------------
+# Fleets
+# --------------------------------------------------------------------------
+
+def fleet_jobs(name: str):
+    """K = 8 fleets at a small shape: homogeneous DS and L-DS (rates, costs,
+    budgets and seeds differ per slice), and a ragged mixed-policy fleet
+    under SWITCHED."""
+    from repro_torch import core
+    if name in ("ds", "l-ds"):
+        base = core.CocktailConfig(n_cu=10, n_ec=4, eps=0.1, pair_iters=15, seed=7)
+        spec = core.ALL_SPECS[name]
+        return [core.SliceJob(dataclasses.replace(
+            base, seed=7 + k, eps=0.1 + 0.02 * k, c_base=100.0 + 10.0 * k,
+            f_base=tuple(16000.0 + 2000.0 * ((j + k) % 4) for j in range(4))), spec)
+            for k in range(8)]
+    base = core.CocktailConfig(n_cu=6, n_ec=3, eps=0.1, pair_iters=15, seed=7,
+                               f_base=(8000.0, 20000.0, 12000.0))
+    specs = ["ds", "l-ds", "no-sdc", "no-slt", "no-lsa", "greedy", "ecself", "cufull"]
+    shapes = [(6, 3), (8, 4), (6, 3), (5, 2), (6, 3), (8, 4), (6, 3), (5, 2)]
+    return [core.SliceJob(dataclasses.replace(base, n_cu=n, n_ec=m, seed=k,
+                                              f_base=base.f_base[:m] + (9000.0,) * (m - 3)),
+                          core.ALL_SPECS[s])
+            for k, (s, (n, m)) in enumerate(zip(specs, shapes))]
+
+
+def recording_decisions():
+    """Patch ``datasche.stacked_step`` to log every slot's decision; yields
+    the list."""
+    from repro_torch.core import datasche
+    log, step = [], datasche.stacked_step
+
+    def logged(*args, **kw):
+        out = step(*args, **kw)
+        log.append(out[2])
+        return out
+    return log, mock.patch.object(datasche, "stacked_step", logged)
+
+
+def fleet_result(state, recs, decisions) -> dict:
+    from repro_torch import bridge
+    return {"state": bridge.to_numpy(state), "recs": bridge.to_numpy(recs),
+            "decisions": [bridge.to_numpy(d) for d in decisions]}
+
+
+def fleets(payload) -> dict:
+    """``FleetEngine.run(mesh=)`` of each named fleet over a (world, 1)
+    mesh; a fleet whose K does not divide by the world raises."""
+    from repro_torch import core
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(device="cpu")
+    out = {}
+    for name in payload["fleets"]:
+        eng = core.FleetEngine.from_jobs(fleet_jobs(name), device="cpu")
+        log, patch = recording_decisions()
+        with patch:
+            state, recs = eng.run(payload["slots"], mesh=mesh)
+        out[name] = fleet_result(state, recs, log)
+    odd = core.FleetEngine.from_jobs(fleet_jobs("ds")[:dist.get_world_size() + 1], device="cpu")
+    try:
+        odd.run(1, mesh=mesh)
+        out["odd_k_raised"] = ""
+    except ValueError as exc:
+        out["odd_k_raised"] = str(exc)
+    return out
+
+
+# --------------------------------------------------------------------------
+# train.main (elastic resume)
+# --------------------------------------------------------------------------
+
+def train_main(payload) -> dict:
+    """``train.main(payload["argv"])`` with its standard output captured;
+    with ``payload["snapshot"]`` (an npz path), the parameters and moments
+    the run's first step receives are gathered whole and compared with the
+    snapshot's arrays bit for bit."""
+    from repro_torch.launch import train
+    from repro_torch.parallel.sharding import sharding_of
+    checks = {}
+    make = train.make_train_step
+
+    def checking(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def run(params, opt, batch):
+            if not checks and payload.get("snapshot"):
+                with np.load(payload["snapshot"]) as z:
+                    for name, p in params.named_parameters():
+                        key = name.replace(".", "/")
+                        for prefix, t in ((f"params/{key}", p), (f"opt/.m/{key}", opt.m[name]),
+                                          (f"opt/.v/{key}", opt.v[name])):
+                            sh = sharding_of(p)
+                            full = sh.gather(t) if sh is not None else t
+                            checks[prefix] = bool(np.array_equal(full.detach().numpy(),
+                                                                 z[prefix]))
+                    checks["opt/.step"] = int(opt.step) == int(z["opt/.step"])
+            return step(params, opt, batch)
+        return run
+
+    buf = io.StringIO()
+    with mock.patch.object(train, "make_train_step", checking), contextlib.redirect_stdout(buf):
+        summary = train.main(payload["argv"])
+    return {"stdout": buf.getvalue(), "summary": summary, "restored_equal": checks}
+
+
+def several(tasks) -> list:
+    """Each (task, payload) of ``tasks`` in turn, in one world."""
+    return [TASKS[task](payload) for task, payload in tasks]
+
+
+TASKS = {"int8_sum": int8_sum, "train_steps": train_steps, "moe_dispatch": moe_dispatch,
+         "fleets": fleets, "train_main": train_main, "several": several}
