@@ -73,9 +73,9 @@ Phases, each fatal on failure:
      assignments first, equal on both sides;
  10. drive the fleet path (``FleetEngine.from_configs`` / ``from_jobs`` ->
      ``run``) at 1024 x 32 with per-slice rates, costs and budgets: DS and
-     L-DS fleets of K = 1 and K = 8 slices over 12 slots (ms per fleet slot
+     L-DS fleets of K = 1 and K = 8 slices over 4 slots (ms per fleet slot
      and per slice-slot, device busy and launches per fleet slot, peak
-     memory, matcher launches per run equal to 12 x one per policy group
+     memory, matcher launches per run equal to 4 x one per policy group
      at both K), each K = 8 slice against its own single-slice run (rtol
      1e-6, first-slot decisions equal), one K = 8 L-DS slot on the card
      against the CPU, a ragged fleet (1024 x 32, 768 x 24, 512 x 16,
@@ -119,7 +119,20 @@ Phases, each fatal on failure:
      unsharded ``make_train_step`` on the same weights and batches, ms per
      step of both and the all-gathers and reduce-scatters per step;
      ``FleetEngine.run(mesh=)`` of DS and L-DS fleets of K = 8 at 1024 x
-     32 over 3 slots bit-equal to ``run()`` with the same matcher launches.
+     32 over 3 slots bit-equal to ``run()`` with the same matcher launches;
+ 14. tensor-parallel serving on the one card: two gloo ranks spawned on it
+     (NCCL refuses two ranks on one device) serve through ``serve.main
+     --model-parallel 2`` minitron-4b at full size (kv heads on ``model``),
+     granite-20b at 8 layers (one kv head: the cache split by slots, the
+     decode kernel's log-sum-exp output and the merge), falcon-mamba-7b at
+     8 and mixtral-8x7b at 4 (B 4, prompt 16, 32 generated), with exact
+     launches and collectives a step; each held in float32 compute within
+     1e-4 of scale of the unsharded run on the same card (greedy tokens
+     equal) and in bf16 within 0.15 (argmax agreement reported); ms per
+     decode step beside the unsharded run's.
+Phase 6 also holds the decode kernel's log-sum-exp output against its plain
+version (granite-20b's decode on one of phase 14's ranks, a row that sees
+no key, a rank's half of a 32,768-slot cache).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without that last
@@ -914,7 +927,8 @@ def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
         got = fops.flash_attention(q, k, v, qp, kp, spec, kv_valid=valid, impl="kernel")
         launched = {n: fkernel.launches[n] - before[n] for n in before}
         if launched != {"flash_attention": 1, "flash_attention_wgmma": int(route == "wgmma"),
-                        "flash_attention_decode": int(route == "decode")}:
+                        "flash_attention_decode": int(route == "decode"),
+                        "flash_attention_decode_lse": 0}:
             fail(f"flash_attention {name}: routed to {route}, but launches went "
                  f"{before} -> {fkernel.launches}")
         big = b * skv > 1_000_000  # B 128 x 32,768: the plain version in slices
@@ -1587,7 +1601,9 @@ def phase_families(torch, serve, steps, models, configs, kernels) -> dict:
 # --------------------------------------------------------------------------
 
 FLEET_K = 8
-FLEET_SLOTS = 12  # homogeneous fleets; the ragged and mixed-policy ones run 4
+# Slots of the homogeneous fleets, few enough to keep the whole script well
+# inside its time limit; the ragged and mixed-policy ones run 4.
+FLEET_SLOTS = 4
 # Matcher launches per fleet slot: one per policy group, whatever K is.
 FLEET_LAUNCHES = {"ds": {"greedy_collection": 1, "greedy_assignment": 0, "greedy_pairing": 1},
                   "l-ds": {"greedy_collection": 1, "greedy_assignment": 1, "greedy_pairing": 2}}
@@ -2420,6 +2436,331 @@ def phase_distributed(torch, train, steps, optim, models, configs, core, bridge,
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 6: the decode kernel's log-sum-exp output
+# --------------------------------------------------------------------------
+
+# The lse against the plain version's: both compute it in float32 from the
+# same inputs (bf16 q / k widened exactly), so float32 is held to 1e-5
+# relative and bf16 to BF16_TOL of scale; o as the other decode cases.
+LSE_F32_TOL = 1e-5
+
+
+def phase_lse(torch, fops, fref, fkernel) -> dict:
+    """The decode kernel with ``return_lse`` against ``ref.attention_lse_ref``:
+    granite-20b's decode on a rank of phase 14 (24 of 48 slots, all 48 q
+    heads over its one kv head) in both types, a row that sees no key
+    (lse -1e30, o 0), and a rank's half of a 32,768-slot cache (16,384
+    slots, several splits merged in the launch); device ms per call by
+    graph replay, the plain version's ms and the bound (q, o, lse and the
+    positions moved once, k / v of the visible keys)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    AttnSpec = fref.AttnSpec
+    cases = [("lse_seq_bf16", (4, 24, 48, 1, 128), bf16, True),
+             ("lse_seq_f32", (4, 24, 48, 1, 128), f32, True),
+             ("lse_unseen_f32", (4, 24, 48, 1, 128), f32, "unseen"),
+             ("lse16k_bf16", (4, 16384, 32, 8, 128), bf16, "filled")]
+    out = {}
+    for idx, (name, (b, skv, h, hkv, hd), dtype, decode) in enumerate(cases):
+        q, k, v, qp, kp, valid = attn_inputs(torch, b, 1, skv, h, hkv, hd, dtype, 300 + idx,
+                                             decode if decode != "unseen" else True)
+        if decode == "unseen":
+            valid = valid.clone()
+            valid[1] = False
+        spec = AttnSpec()
+        call = lambda: fops.flash_attention(  # noqa: E731
+            q, k, v, qp, kp, spec, kv_valid=valid, impl="kernel", return_lse=True)
+        before = dict(fkernel.launches)
+        o, lse = call()
+        launched = {n: fkernel.launches[n] - before[n] for n in before}
+        if launched != {"flash_attention": 1, "flash_attention_wgmma": 0,
+                        "flash_attention_decode": 1, "flash_attention_decode_lse": 1}:
+            fail(f"flash_attention {name}: launches went {before} -> {fkernel.launches}")
+        plain = lambda: fref.attention_lse_ref(q, k, v, qp, kp, spec, valid)  # noqa: E731
+        o_ref, lse_ref = plain()
+        torch.cuda.synchronize()
+        seen = fref.attention_mask(qp, kp, spec, valid).any(dim=-1)  # (B, 1)
+        err_o, rel_o = rel_err(o, o_ref)
+        d = (lse - lse_ref).abs()[seen]
+        lse_rel = float((d / lse_ref.abs()[seen].clamp(min=1e-30)).max())
+        lse_of_scale = float(d.max()) / max(float(lse_ref.abs()[seen].max()), 1e-30)
+        tol = BF16_TOL if dtype == bf16 else F32_TOL
+        if rel_o > tol or not bool(torch.isfinite(o).all()):
+            fail(f"flash_attention {name}: o {rel_o:.3e} of scale from the plain version")
+        if (dtype == f32 and lse_rel > LSE_F32_TOL) or (dtype == bf16 and lse_of_scale > tol):
+            fail(f"flash_attention {name}: lse {lse_rel:.3e} relative, {lse_of_scale:.3e} of "
+                 f"scale from the plain version")
+        unseen = ~seen
+        if bool(unseen.any()) and not (bool((lse[unseen] == fref.NEG).all()) and
+                                       bool((o[unseen] == 0).all())):
+            fail(f"flash_attention {name}: a row that sees no key is not (0, -1e30)")
+        bound, bound_by, _ = attn_bound(torch, fref, q, k, v, qp, kp, spec, valid)
+        bound += 4.0 * lse.numel() / H100_BYTES_PER_S * 1e3 if bound_by == "bytes" else 0.0
+        long = skv > 1024
+        out[name] = {
+            "shape": [b, 1, skv, h, hkv, hd], "dtype": str(dtype), "route": "decode",
+            "max_abs_err": max(err_o, float(d.max()) if d.numel() else 0.0),
+            "err_of_scale": rel_o, "lse_rel_err": lse_rel, "lse_err_of_scale": lse_of_scale,
+            "rows_seeing_no_key": int(unseen.sum()),
+            "n_split": fkernel.decode_plan(b, skv, hkv, h // hkv, fkernel.decode_slots(
+                q.device, dtype, hd, h // hkv))[0],
+            "ms": graph_ms_per_call(torch, call, 4 if long else 64, 3 if long else 10),
+            "event_ms": cuda_ms(torch, call, reps=20 if long else 200, warmup=2),
+            "plain_ms": cuda_ms(torch, plain, reps=3 if long else 50, warmup=1),
+            "bound_ms": bound, "bound_by": bound_by,
+            # No PyTorch call returns the log-sum-exp of an attention.
+            "library_ms": None}
+        del q, k, v, o, lse, o_ref, lse_ref, call, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 14: tensor-parallel serving, two ranks on the one card
+# --------------------------------------------------------------------------
+
+# arch -> layers kept (0: all). minitron-4b serves at its full depth with its
+# 8 kv heads on model (the "heads" cache layout); granite-20b's one kv head
+# leaves the cache split by slots ("seq": q gathered, the decode kernel's
+# lse output, the log-sum-exp merge); falcon-mamba-7b splits its Mamba-1
+# channels, mixtral-8x7b its experts' ffn; the three are cut in depth for
+# the phase's time.
+TP_CELLS = (("minitron-4b", 0), ("granite-20b", 8), ("falcon-mamba-7b", 8),
+            ("mixtral-8x7b", 4))
+TP_WORLD = 2
+TP_BATCH, TP_PROMPT, TP_GEN = 4, 16, 32
+TP_STEPS = 6  # teacher-forced decode steps held against the unsharded run
+# Of scale: the two ranks' float32 partial sums meet in one more addition
+# than the unsharded products (measured on an H100: 1.2e-6 to 2.6e-6).
+TP_F32_TOL = 1e-4
+TP_TIMEOUT_S = 300
+
+
+def tp_config(configs, arch: str, layers: int, compute_dtype: str = ""):
+    cfg = configs.get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return dataclasses.replace(cfg, compute_dtype=compute_dtype) if compute_dtype else cfg
+
+
+def tp_argv(arch: str, layers: int, device: str, model_parallel: int) -> list:
+    return (["--arch", arch, "--device", device, "--batch", str(TP_BATCH), "--prompt-len",
+             str(TP_PROMPT), "--gen", str(TP_GEN), "--model-parallel", str(model_parallel)]
+            + (["--layers", str(layers)] if layers else []))
+
+
+def tp_tokens(torch, cfg, device):
+    rng = np.random.default_rng(5)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size, (TP_BATCH, TP_STEPS)),
+                           dtype=torch.int32, device=device)
+
+
+def tp_checks(torch, configs, models, sharding, arch, layers, device, mesh=None) -> dict:
+    """Teacher-forced decode logits (B, steps, V) on the host, in float32
+    compute and in bf16, of the bf16 weights drawn from seed 0 (the serve
+    run's), this rank's block of them under ``mesh``; an MoE's expert ids
+    of every step and layer (steps, L, B, k) beside them (``routing``)."""
+    from repro_torch.models import moe
+    out = {}
+    model = None
+    for cdt in ("float32", "bfloat16"):
+        cfg = tp_config(configs, arch, layers, cdt)
+        api = models.build_model(cfg, device=device)
+        if model is None:
+            model = api.init(0, dtype=torch.bfloat16, mesh=mesh)
+        tokens = tp_tokens(torch, cfg, device)
+        if mesh is not None:
+            tokens = sharding.local_rows(tokens, mesh)
+        cache = api.init_cache(TP_BATCH, TP_STEPS + 2)
+        steps, routes = [], []
+        for t in range(TP_STEPS):
+            with moe.recording_routing() as log:
+                logits, cache = api.decode_step(model, cache, tokens[:, t:t + 1])
+            steps.append(logits[:, 0].float().cpu())
+            if log:
+                routes.append(torch.stack([idx.cpu() for idx, _ in log]))
+        out[cdt] = torch.stack(steps, dim=1)
+        if routes:
+            out[f"routing_{cdt}"] = torch.stack(routes)
+        del cache
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_agreeing_rows(torch, got: dict, want: dict, cdt: str):
+    """(B, steps) mask of the decode steps of each batch row before the
+    first step where an MoE picked other experts on the two sides in any
+    layer (a near tie that the other rounding flips: from there the row's
+    cache differs); all True without routing."""
+    key = f"routing_{cdt}"
+    if key not in want:
+        return torch.ones(want[cdt].shape[:2], dtype=torch.bool)
+    same = (got[key].sort(-1).values == want[key].sort(-1).values).all(-1).all(1)  # (steps, B)
+    return same.t().int().cumprod(dim=1).bool()
+
+
+def tp_worker(rank: int, world: int, work: str, cells, device: str) -> None:
+    """One rank of phase 14 (a spawned process): a gloo group through a
+    FileStore under ``work``; per cell ``serve.main`` at ``--model-parallel
+    world`` with every launch count set to 0 just before it and read just
+    after, then ``tp_checks`` on this rank's blocks; the results go to
+    ``work/rank{rank}.pt``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(str(Path(work) / "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch import configs, models
+        from repro_torch.kernels.flash_attention import kernel as fkernel
+        from repro_torch.kernels.mamba_scan import kernel as skernel
+        from repro_torch.kernels.matching import kernel as mkernel
+        from repro_torch.launch import serve
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.parallel import sharding
+        kernels = (mkernel, fkernel, skernel)
+        out = {"backend": str(dist.get_backend())}
+        for arch, layers in cells:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(*kernels)
+            summary = serve.main(tp_argv(arch, layers, device, world))
+            launches = all_counts(*kernels)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            mesh = make_host_mesh(model_parallel=world, device=device)
+            with sharding.mesh_context(mesh, "serve"):
+                logits = tp_checks(torch, configs, models, sharding, arch, layers, device, mesh)
+            out[arch] = {"summary": summary, "launches": launches, "serve_peak_gib": peak,
+                         "logits": logits}
+        torch.save(out, Path(work) / f"rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_expected(configs, arch: str, layers: int, steps: int, world: int):
+    """(launches of a serve run of ``steps`` decode steps, collectives of a
+    step) on a model axis of ``world``: one attention (decode kernel) or
+    scan launch a layer a step, the lse variant where the kv heads do not
+    divide over model; 2 all-reduces a layer, 1 for the embedding rows, 1
+    logits gather, and a q gather and an lse merge a layer under "seq"."""
+    cfg = tp_config(configs, arch, layers)
+    n = cfg.n_layers * steps
+    if cfg.family == "ssm":
+        return {"mamba1_scan": n}, {"tp_all_reduce": 2 * cfg.n_layers + 1, "tp_all_gather": 1}
+    seq = cfg.n_kv_heads % world != 0
+    launches = {"flash_attention": n, "flash_attention_decode": n}
+    if seq:
+        launches["flash_attention_decode_lse"] = n
+    return launches, {"tp_all_reduce": 2 * cfg.n_layers + 1,
+                      "tp_all_gather": 1 + (2 * cfg.n_layers if seq else 0)}
+
+
+def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cuda:0") -> dict:
+    """Phase 14: a world of two gloo ranks on the one card (NCCL refuses two
+    ranks on one device), spawned after the main process frees its cached
+    memory; each serves every cell through ``serve.main`` at model = 2 and
+    decodes the check tokens. Then the main process serves each cell
+    unsharded on the same card and holds the ranks' float32 logits within
+    ``TP_F32_TOL`` of scale (greedy tokens and an MoE's expert choices
+    equal) and their bf16 logits within ``FAMILY_BF16_TOL``: an MoE's rows
+    up to the first step where the two sides' bf16 roundings pick another
+    expert (a near tie of the router; the row's cache differs from there),
+    the whole gap and the argmax agreement reported beside; exact launches
+    of the serve run on each rank; exact collectives a step."""
+    import gc
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.parallel import sharding
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    work = ROOT / "build" / "chip_smoke_tp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(tp_worker, args=(TP_WORLD, str(work), cells, device),
+                             nprocs=TP_WORLD, join=False, start_method="spawn")
+    try:
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                fail(f"phase 14: the {TP_WORLD} ranks did not finish in {TP_TIMEOUT_S} s")
+    except mp.ProcessRaisedException as exc:
+        fail(f"phase 14: a rank failed:\n{exc}")
+    except mp.ProcessExitedException as exc:
+        fail(f"phase 14: a rank exited: {exc}")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    ranks = [torch.load(work / f"rank{r}.pt") for r in range(TP_WORLD)]
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"world": TP_WORLD, "backend": ranks[0]["backend"], "device": device,
+           "world_s": time.perf_counter() - t0, "cells": {}}
+    steps = TP_PROMPT + TP_GEN
+    for arch, layers in cells:
+        r0 = ranks[0][arch]
+        want_launches, want_comm = tp_expected(configs, arch, layers, steps, TP_WORLD)
+        for rank, r in enumerate(ranks):
+            got = r[arch]["launches"]
+            if got != {k: want_launches.get(k, 0) for k in got}:
+                fail(f"phase 14 {arch} rank {rank}: serve launches {got}, expected "
+                     f"{want_launches}")
+            comm = {k: v for k, v in r[arch]["summary"]["collectives_per_step"].items()
+                    if k.startswith("tp_")}
+            if comm != want_comm:
+                fail(f"phase 14 {arch} rank {rank}: collectives a step {comm}, expected "
+                     f"{want_comm}")
+            if r[arch]["summary"]["sample_tokens"] != r0["summary"]["sample_tokens"] or any(
+                    not torch.equal(r[arch]["logits"][c], r0["logits"][c]) for c in r0["logits"]):
+                fail(f"phase 14 {arch}: rank {rank}'s gathered logits differ from rank 0's")
+        # The same cell unsharded on the same card.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        single = serve.main(tp_argv(arch, layers, device, 1))
+        single_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ref = tp_checks(torch, configs, models, sharding, arch, layers, device)
+        cdts = ("float32", "bfloat16")
+        gaps = {c: rel_err(r0["logits"][c], ref[c])[1] for c in cdts}
+        agree = {c: float((r0["logits"][c].argmax(-1) == ref[c].argmax(-1)).float().mean())
+                 for c in cdts}
+        rows = {c: tp_agreeing_rows(torch, r0["logits"], ref, c) for c in cdts}
+        held = {c: rel_err(r0["logits"][c][rows[c]], ref[c][rows[c]])[1] for c in cdts}
+        if not bool(rows["float32"].all()) or gaps["float32"] > TP_F32_TOL or \
+                agree["float32"] != 1.0:
+            fail(f"phase 14 {arch}: float32 logits {gaps['float32']:.3e} of scale from the "
+                 f"unsharded run (limit {TP_F32_TOL:.0e}), argmax agreement "
+                 f"{agree['float32']:.4f}, routing equal {bool(rows['float32'].all())}")
+        if held["bfloat16"] > FAMILY_BF16_TOL:
+            fail(f"phase 14 {arch}: bf16 logits {held['bfloat16']:.3e} of scale from the "
+                 f"unsharded run (limit {FAMILY_BF16_TOL})")
+        cfg = tp_config(configs, arch, layers)
+        s = r0["summary"]
+        out["cells"][arch] = {
+            "n_layers": cfg.n_layers, "mesh": s["mesh"],
+            "layout": "ssm" if cfg.family == "ssm" else (
+                "seq" if cfg.n_kv_heads % TP_WORLD else "heads"),
+            "ms_per_decode_step": s["decode_s"] / steps * 1e3,
+            "unsharded_ms_per_decode_step": single["decode_s"] / steps * 1e3,
+            "tokens_per_s": s["tokens_per_s"], "unsharded_tokens_per_s": single["tokens_per_s"],
+            "collectives_per_step": s["collectives_per_step"],
+            "f32_err_of_scale": gaps["float32"], "bf16_err_of_scale": gaps["bfloat16"],
+            "bf16_err_of_scale_same_experts": held["bfloat16"],
+            "bf16_steps_same_experts": [int(rows["bfloat16"].sum()), rows["bfloat16"].numel()],
+            "argmax_agreement": agree, "launches": r0["launches"],
+            "serve_peak_gib_per_rank": [r[arch]["serve_peak_gib"] for r in ranks],
+            "unsharded_serve_peak_gib": single_peak}
+        del ref
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def report_families(fam: dict, smi: str, t0: float) -> None:
     for arch, r in fam.items():
         print(f"phase 12 {arch} ({r['n_layers']} layers, {r['weights_gb']:.2f} GB of bf16 "
@@ -2560,6 +2901,11 @@ def main(argv=None) -> int:
                                    "simt_ms", "simt_device_ms", "n_split", "rows", "plain_ms",
                                    "bound_ms", "library_ms", "library_device_ms") if k in r}
              for c, r in cases.items()}))
+    lse_res = phase_lse(torch, fops, fref, fkernel)
+    print("phase 6 flash_attention_decode_lse vs plain: " + json.dumps(
+        {c: {k: r[k] for k in ("err_of_scale", "lse_rel_err", "lse_err_of_scale", "n_split",
+                               "ms", "event_ms", "plain_ms", "bound_ms", "rows_seeing_no_key")}
+         for c, r in lse_res.items()}))
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
 
     all_kernels = (kernel, fkernel, skernel)
@@ -2673,6 +3019,24 @@ def main(argv=None) -> int:
     print("phase 13 (d) a pod mesh of one rank has no pod peers: (a) runs the NCCL path; the "
           "numerics across ranks are the CPU tests'")
     print(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    tp = phase_tp(torch, serve, models, configs, all_kernels)
+    print(f"phase 14 tensor-parallel serving: {tp['world']} {tp['backend']} ranks on "
+          f"{tp['device']}, mesh data 1 x model {tp['world']} [{smi}]")
+    for arch, r in tp["cells"].items():
+        print(f"phase 14 {arch} ({r['n_layers']} layers, {r['layout']}): "
+              f"{r['ms_per_decode_step']:.3f} ms per decode step (unsharded "
+              f"{r['unsharded_ms_per_decode_step']:.3f}), collectives per step "
+              f"{json.dumps(r['collectives_per_step'])}, float32 {r['f32_err_of_scale']:.3e} / "
+              f"bf16 {r['bf16_err_of_scale']:.3e} of scale from unsharded (bf16 "
+              f"{r['bf16_err_of_scale_same_experts']:.3e} over the "
+              f"{r['bf16_steps_same_experts'][0]} of {r['bf16_steps_same_experts'][1]} row-steps "
+              f"before an expert choice flips), argmax agreement "
+              f"{json.dumps(r['argmax_agreement'])}, serve peak GiB per rank "
+              f"{json.dumps([round(x, 3) for x in r['serve_peak_gib_per_rank']])} (unsharded "
+              f"{r['unsharded_serve_peak_gib']:.3f}), launches {json.dumps(r['launches'])}")
+    print(f"phase 14 took {time.perf_counter() - t0:.1f} s")
 
     for mod in ("jax", "repro"):
         if mod in sys.modules:
@@ -2798,6 +3162,21 @@ def main(argv=None) -> int:
             "launches": full["launches"]["flash_attention_wgmma"],
             "launches_per_step": full["wgmma_per_step"]},
     })
+    lse = lse_res["lse_seq_bf16"]
+    line.append({
+        "name": "flash_attention_decode_lse", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_decode_sm90.cu",
+        "replaces": fa_replaces,
+        "launches": tp["cells"]["granite-20b"]["launches"]["flash_attention_decode_lse"],
+        "launches_per_decode_step": tp["cells"]["granite-20b"]["n_layers"],
+        "max_abs_err": max(r["max_abs_err"] for r in lse_res.values()),
+        "ms": lse["ms"], "device_ms": lse["ms"], "event_ms": lse["event_ms"],
+        "plain_ms": lse["plain_ms"], "bound_ms": lse["bound_ms"], "bound_by": lse["bound_by"],
+        "library_ms": None, "shape": lse["shape"], "n_split": lse["n_split"],
+        "cases": {c: {k: r[k] for k in ("shape", "n_split", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "err_of_scale", "lse_rel_err",
+                                        "lse_err_of_scale")} for c, r in lse_res.items()},
+    })
     sc = lm_kres["mamba1_scan"]
     pre, dec = sc["prefill_bf16"], sc["decode_bf16"]
     per_call = configs.get_config("falcon-mamba-7b").n_layers
@@ -2829,7 +3208,8 @@ def main(argv=None) -> int:
             "scan_ptxas": scan_regs, "decode_ptxas": decode_regs, "simt_ptxas": simt_regs,
             "lm_kernels": lm_kres,
             "serve": serve_res, "lm_parity": lm_parity, "fleet": fleet, "train": trn,
-            "families": fam, "distributed": dst},
+            "families": fam, "distributed": dst, "decode_lse": lse_res,
+            "tensor_parallel": tp},
             indent=1))
     import torch.distributed as dist
     dist.destroy_process_group()

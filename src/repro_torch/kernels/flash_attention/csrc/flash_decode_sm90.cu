@@ -13,7 +13,11 @@
 // filled caches) and an optional tanh soft-cap; float32 m, l and
 // accumulator; masked logits take the finite -1e30, so a row that sees no
 // key is written as exact 0. ../ref.py's decode_split_reference repeats the
-// split-and-merge arithmetic step by step.
+// split-and-merge arithmetic step by step. Where the caller passes lse, the
+// kernel also writes each (batch row, q head)'s float32 log-sum-exp of its
+// visible logits, m + log l of the merged (m, l) (-1e30 for a row that sees
+// no key; ../ref.py's attention_lse_ref): a tensor-parallel decode whose
+// cache slots are split over ranks merges the ranks' outputs with it.
 //
 // What bounds it on an H100: the bytes of the kv cache. Each key costs
 // 2 hd loaded values for 4 hd G operations (G q heads a kv head): 2 operations
@@ -67,8 +71,9 @@
 // q, k, v 16-byte aligned: q, o (B, 1, H, hd) and k, v (B, Skv, Hkv, hd) of
 // one type (dtype 0 = float32, 1 = bfloat16); q_pos (B, 1) and kv_pos
 // (B, Skv) int32; kv_valid (B, Skv) bytes (0 = invalid) or null for all
-// valid. rows (1, 2, 4 or 8, at least min(H / Hkv, 8)) is the q heads a
-// block; keys are cut into n_split splits of split_tiles 32-key tiles. With
+// valid; lse (B, H) float32 or null. rows (1, 2, 4 or 8, at least
+// min(H / Hkv, 8)) is the q heads a block; keys are cut into n_split splits
+// of split_tiles 32-key tiles. With
 // n_split > 1, ws holds B x Hkv ceil(G / rows) x n_split x rows (2 + hd)
 // floats and counters B x Hkv ceil(G / rows) ints, zero before the first
 // launch; every launch leaves them at zero.
@@ -99,6 +104,7 @@ struct Params {
   const int* kv_pos;
   const uint8_t* kv_valid;
   void* o;
+  float* lse;
   float* ws;
   int* counters;
   int b, skv, h, hkv, hd, group, n_groups, n_split, split_tiles;
@@ -467,6 +473,8 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(Params p) {
     for (int g = 0; g < rows; ++g) {
       const bool seen = ml_s[g] > kNeg / 2;
       const float denom = fmaxf(ml_s[GM + g], 1e-30f);
+      if (p.lse != nullptr && tid == 0)
+        p.lse[size_t(bb) * p.h + head0 + g] = seen ? ml_s[g] + logf(ml_s[GM + g]) : kNeg;
       for (int d = tid; d < hd; d += kThreads) {
         float a = 0.f;
 #pragma unroll
@@ -520,6 +528,8 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(Params p) {
   for (int g = 0; g < rows; ++g) {
     const float mx = corr_s[g];
     const float denom = fmaxf(p_s[g], 1e-30f);
+    if (p.lse != nullptr && tid == 0)
+      p.lse[size_t(bb) * p.h + head0 + g] = mx > kNeg / 2 ? mx + logf(p_s[g]) : kNeg;
     for (int d = tid; d < hd; d += kThreads) {
       float a = 0.f;
       for (int s = 0; s < p.n_split; ++s)
@@ -595,7 +605,8 @@ bool valid_rows(int rows, int group) {
 extern "C" {
 
 int flash_decode_launch(const void* q, const void* k, const void* v, const int* q_pos,
-                        const int* kv_pos, const unsigned char* kv_valid, void* o, float* ws,
+                        const int* kv_pos, const unsigned char* kv_valid, void* o, float* lse,
+                        float* ws,
                         int* counters, int b, int skv, int h, int hkv, int hd, int dtype, int rows,
                         int n_split, int split_tiles, float scale, int causal, int window,
                         int prefix_len, float softcap, void* stream) {
@@ -613,7 +624,7 @@ int flash_decode_launch(const void* q, const void* k, const void* v, const int* 
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_groups = (group + rows - 1) / rows;
   if (hkv * n_groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{q,      k,     v,        q_pos,   kv_pos, kv_valid, o,      ws,
+  const Params p{q,      k,     v,        q_pos,   kv_pos, kv_valid, o,      lse,    ws,
                  counters, b,   skv,      h,       hkv,    hd,       group,  n_groups,
                  n_split, split_tiles, scale, softcap, causal, window, prefix_len};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

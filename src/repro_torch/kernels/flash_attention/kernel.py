@@ -13,7 +13,9 @@ cores); every other call the kernel of ``flash_attention.cu`` (float32
 cores; the q heads of a kv head packed into a block's rows, ``simt_rows``
 of them a block). Each launch adds one to ``launches["flash_attention"]``, and a
 launch of the wgmma or decode kernel also to ``launches["flash_attention_wgmma"]``
-or ``launches["flash_attention_decode"]``. The three kernels are in one
+or ``launches["flash_attention_decode"]``; a decode launch that also writes
+each row's log-sum-exp (``return_lse``: a cache whose slots are split over
+tensor-parallel ranks) to ``launches["flash_attention_decode_lse"]`` too. The three kernels are in one
 library, built by ``nvcc`` on the first launch (``kernels/_build.py``),
 never at import, so this module imports on a machine without CUDA.
 """
@@ -28,7 +30,7 @@ from typing import Optional
 import torch
 
 from .. import _build
-from .ref import DECODE_TILE, AttnSpec
+from .ref import DECODE_TILE, NEG, AttnSpec
 
 SOURCES = (Path(__file__).parent / "csrc" / "flash_attention.cu",
            Path(__file__).parent / "csrc" / "flash_attention_sm90.cu",
@@ -52,7 +54,8 @@ SIMT_WIDE_MAX_HEAD_DIM = 128
 # ptxas reports each kernel's registers and spills into the build log.
 EXTRA_FLAGS = ("-Xptxas", "-v")
 
-launches = {"flash_attention": 0, "flash_attention_wgmma": 0, "flash_attention_decode": 0}
+launches = {"flash_attention": 0, "flash_attention_wgmma": 0, "flash_attention_decode": 0,
+            "flash_attention_decode_lse": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -83,7 +86,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attention_wgmma_launch.restype = i
     lib.flash_attention_wgmma_occupancy.argtypes = [i, i, ip, ip]
     lib.flash_attention_wgmma_occupancy.restype = i
-    lib.flash_decode_launch.argtypes = [vp] * 9 + [i] * 9 + [f, i, i, i, f, vp]
+    lib.flash_decode_launch.argtypes = [vp] * 10 + [i] * 9 + [f, i, i, i, f, vp]
     lib.flash_decode_launch.restype = i
     lib.flash_decode_occupancy.argtypes = [i, i, i, ip, ip, ip]
     lib.flash_decode_occupancy.restype = i
@@ -250,18 +253,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_pos: torch.Tensor, kv_pos: torch.Tensor, spec: AttnSpec,
                          kv_valid: Optional[torch.Tensor] = None,
                          scale: Optional[float] = None,
-                         force_simt: bool = False) -> torch.Tensor:
+                         force_simt: bool = False, return_lse: bool = False):
     """Attention of q over (k, v) -> (B, Sq, H, hd) in q.dtype (see ref.py).
 
     ``force_simt`` launches the kernel of ``flash_attention.cu`` where
     ``variant`` would pick the wgmma or decode one, to time them on the same
-    inputs."""
-    return _flash_attention_cuda(q, k, v, q_pos, kv_pos, spec, kv_valid, scale, force_simt)
+    inputs. ``return_lse`` (the decode kernel's calls only) also returns
+    each row's float32 log-sum-exp (B, 1, H), -1e30 where a row sees no key
+    (``ref.attention_lse_ref``)."""
+    return _flash_attention_cuda(q, k, v, q_pos, kv_pos, spec, kv_valid, scale, force_simt,
+                                 return_lse=return_lse)
 
 
 def _flash_attention_cuda(q, k, v, q_pos, kv_pos, spec, kv_valid=None, scale=None,
                           force_simt=False, n_split: Optional[int] = None,
-                          rows: Optional[int] = None) -> torch.Tensor:
+                          rows: Optional[int] = None, return_lse: bool = False):
     """``flash_attention_cuda``, where a given ``n_split`` fixes the decode
     kernel's split count (``split_plan``; else ``decode_plan`` picks it) and a
     given ``rows`` the SIMT kernel's rows a block (else ``simt_rows``): the
@@ -293,9 +299,14 @@ def _flash_attention_cuda(q, k, v, q_pos, kv_pos, spec, kv_valid=None, scale=Non
     if rows is not None and (route != "simt" or rows not in simt_row_sizes(hd)):
         raise ValueError(f"flash_attention: rows must be one of {simt_row_sizes(hd)} at hd "
                          f"{hd} and is for the SIMT kernel; this call takes the {route} one")
+    if return_lse and route != "decode":
+        raise ValueError(f"flash_attention: the log-sum-exp output is the decode kernel's "
+                         f"(Sq = 1, hd a multiple of {DECODE_HEAD_DIM_MULTIPLE}); this call "
+                         f"takes the {route} one")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((b, 1, h), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() == 0 or skv == 0:
-        return out.zero_()
+        return (out.zero_(), lse.fill_(NEG)) if return_lse else out.zero_()
     q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     q_pos = q_pos.to(torch.int32).contiguous()
     kv_pos = kv_pos.to(torch.int32).contiguous()
@@ -330,7 +341,8 @@ def _flash_attention_cuda(q, k, v, q_pos, kv_pos, spec, kv_valid=None, scale=Non
                 blocks = b * hkv * -(-group // rows)
                 ws, cnt = (t.data_ptr() for t in _decode_workspace(
                     q.device, stream, blocks * n_split * rows * (hd + 2), blocks))
-            err = lib.flash_decode_launch(*args[:7], ws, cnt, b, skv, h, hkv, hd,
+            err = lib.flash_decode_launch(*args[:7], None if lse is None else lse.data_ptr(),
+                                          ws, cnt, b, skv, h, hkv, hd,
                                           DTYPES[q.dtype], rows, n_split, split_tiles, *mask,
                                           stream)
     if err != 0:
@@ -340,6 +352,9 @@ def _flash_attention_cuda(q, k, v, q_pos, kv_pos, spec, kv_valid=None, scale=Non
     launches["flash_attention"] += 1
     if route != "simt":
         launches[f"flash_attention_{route}"] += 1
+    if return_lse:
+        launches["flash_attention_decode_lse"] += 1
+        return out, lse
     return out
 
 

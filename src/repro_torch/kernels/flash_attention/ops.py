@@ -12,6 +12,12 @@ package does off the TPU. ``"kernel"``, ``"chunked"`` and
 ``"ref"`` force one path; the kernel raises on a CPU tensor. There is no
 fallback: on a CUDA tensor the kernel launches or raises.
 
+``return_lse=True`` (one query row) also returns each row's float32
+log-sum-exp (B, 1, H): the decode kernel's ``lse`` output on a CUDA
+tensor, ``ref.attention_lse_ref`` on the CPU; a tensor-parallel decode
+whose cache slots are split over ranks merges the ranks' outputs with it.
+It has no backward.
+
 Types promote as the JAX package's attention does: q, k and v of different
 types (a float32 query over a bf16 cache, a bf16 query over float32 keys)
 are taken to their promoted type, and the output is in q's type.
@@ -33,7 +39,7 @@ from typing import Optional
 import torch
 
 from . import kernel
-from .ref import NEG, AttnSpec, attention_mask, attention_ref
+from .ref import NEG, AttnSpec, attention_lse_ref, attention_mask, attention_ref
 
 IMPLS = ("auto", "kernel", "chunked", "ref")
 
@@ -123,18 +129,30 @@ class KernelAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, q_pos, kv_pos, spec: AttnSpec, kv_valid=None,
                     scale: Optional[float] = None, impl: str = "auto",
-                    q_chunk: int = 1024, kv_chunk: int = 1024) -> torch.Tensor:
+                    q_chunk: int = 1024, kv_chunk: int = 1024, return_lse: bool = False):
     """Attention entry point of the models: q (B, Sq, H, hd), k/v
     (B, Skv, Hkv, hd), q_pos (B, Sq), kv_pos (B, Skv), kv_valid (B, Skv) or
-    None -> (B, Sq, H, hd) in q.dtype. impl: auto | kernel | chunked | ref."""
+    None -> (B, Sq, H, hd) in q.dtype, and with ``return_lse`` (Sq = 1)
+    also the rows' float32 log-sum-exp (B, 1, H). impl: auto | kernel |
+    chunked | ref."""
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; expected one of {IMPLS}")
     if not q.dtype == k.dtype == v.dtype:
         dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
-        return flash_attention(q.to(dt), k.to(dt), v.to(dt), q_pos, kv_pos, spec, kv_valid,
-                               scale, impl, q_chunk, kv_chunk).to(q.dtype)
+        out = flash_attention(q.to(dt), k.to(dt), v.to(dt), q_pos, kv_pos, spec, kv_valid,
+                              scale, impl, q_chunk, kv_chunk, return_lse)
+        return (out[0].to(q.dtype), out[1]) if return_lse else out.to(q.dtype)
     if impl == "auto":
         impl = "kernel" if q.is_cuda else "chunked"
+    if return_lse:
+        if q.shape[1] != 1:
+            raise ValueError(f"return_lse takes one query row (decode), got {q.shape[1]}")
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError("the log-sum-exp output has no backward")
+        if impl == "kernel":
+            return kernel.flash_attention_cuda(q, k, v, q_pos, kv_pos, spec, kv_valid=kv_valid,
+                                               scale=scale, return_lse=True)
+        return attention_lse_ref(q, k, v, q_pos, kv_pos, spec, kv_valid, scale)
     if impl == "kernel":
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
             return KernelAttention.apply(q, k, v, q_pos, kv_pos, kv_valid, spec, scale)

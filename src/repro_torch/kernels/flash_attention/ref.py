@@ -5,8 +5,10 @@ attention path; counterpart of ``repro.kernels.flash_attention.ref``.
 paths are held against. It supports GQA, causal / sliding-window / prefix-LM
 masks, tanh soft-capping of the logits and padded-KV validity (decode
 caches). Positions are absolute and read from ``q_pos`` / ``kv_pos``, never
-from indices. ``decode_split_reference`` repeats the decode kernel's
-split-and-merge arithmetic (``csrc/flash_decode_sm90.cu``) for the tests, and
+from indices. ``attention_lse_ref`` also returns each row's log-sum-exp,
+the plain version of the decode kernel's ``lse`` output.
+``decode_split_reference`` repeats the decode kernel's split-and-merge
+arithmetic (``csrc/flash_decode_sm90.cu``) for the tests, and
 ``simt_tile_reference`` the SIMT kernel's packed row tiles
 (``csrc/flash_attention.cu``).
 """
@@ -91,6 +93,33 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = probs * mask.any(dim=-1)[:, None, :, None]
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
     return out.to(q.dtype)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, kv_pos: torch.Tensor, spec: AttnSpec,
+                      kv_valid: Optional[torch.Tensor] = None,
+                      scale: Optional[float] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``attention_ref(..., gqa="group")`` and the float32 log-sum-exp of
+    each row's visible (scaled, soft-capped) logits, (B, Sq, H), -1e30 for a
+    row that sees no key: what the decode kernel returns with ``lse``.
+    Disjoint key sets' (out, lse) merge into the attention over their union
+    (``models.transformer.merge_partials``)."""
+    b, sq, h, hd = q.shape
+    hkv = k.shape[2]
+    if h % hkv:
+        raise ValueError(f"{h} query heads are not a multiple of {hkv} kv heads")
+    group = h // hkv
+    scale = hd ** -0.5 if scale is None else scale
+    mask = attention_mask(q_pos, kv_pos, spec, kv_valid)  # (B, Sq, Skv)
+    seen = mask.any(dim=-1)  # (B, Sq)
+    qg = q.float().reshape(b, sq, hkv, group, hd)
+    logits = _capped(torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale, spec)
+    logits = torch.where(mask[:, None, None], logits, NEG)
+    lse = torch.logsumexp(logits, dim=-1)  # (B, Hkv, G, Sq)
+    probs = torch.exp(logits - lse[..., None]) * seen[:, None, None, :, None]
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float()).reshape(b, sq, h, hd)
+    lse = torch.where(seen[:, None, None], lse, NEG).permute(0, 3, 1, 2).reshape(b, sq, h)
+    return out.to(q.dtype), lse
 
 
 def decode_split_bounds(skv: int, n_split: int) -> list[tuple[int, int]]:

@@ -7,11 +7,18 @@ cross-attention cache.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --reduced --device cpu
+    PYTHONPATH=src torchrun --nproc_per_node 2 -m repro_torch.launch.serve \
+        --arch mixtral-8x7b --model-parallel 2
 
 Runs on the CUDA card (weights drawn there from ``--seed``, stored in the
 compute dtype); ``--device cpu`` runs the plain PyTorch versions instead.
-It builds the host mesh and serves inside its context, as the JAX entry
-point does; serving is not sharded (every rank holds the whole model).
+It builds the host mesh (``--model-parallel N`` ranks on its ``model``
+axis, the rest on ``data``) and serves inside its context in the ``serve``
+style, as the JAX package's decode cells place the weights: each rank draws
+and keeps its tensor-parallel block of every leaf (replicated over
+``data``), takes its rows of the batch over ``data``, and greedy tokens
+come from the logits gathered along the vocab. Rank 0 prints the summary,
+which names the mesh and the collectives of a decode step.
 """
 from __future__ import annotations
 
@@ -24,8 +31,11 @@ import numpy as np
 import torch
 
 from ..configs import get_config, reduced as make_reduced
+import torch.distributed as dist
+
 from ..models import build_model, encdec
-from ..parallel.sharding import mesh_context
+from ..parallel.sharding import (axis_sizes, comm_counts, local_rows, mesh_context,
+                                 reset_comm_counts)
 from .mesh import local_device, make_host_mesh
 from .steps import make_serve_step
 
@@ -42,6 +52,8 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=0,
                     help="keep the first N layers (a depth cut where the model does not "
                          "fit the card); 0 keeps them all")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks on the mesh's model axis (tensor parallelism)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -49,26 +61,38 @@ def main(argv=None):
         cfg = make_reduced(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    mesh = make_host_mesh(device=args.device)
-    with mesh_context(mesh):
+    mesh = make_host_mesh(model_parallel=args.model_parallel, device=args.device)
+    with mesh_context(mesh, "serve"):
         return _serve(args, cfg, mesh)
+
+
+def _rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a global batch leaf, where they divide over the
+    data-parallel ranks (the cache is laid out so; else every rank serves
+    the whole batch)."""
+    try:
+        return local_rows(x, mesh)
+    except ValueError:
+        return x
 
 
 def _serve(args, cfg, mesh):
     model = build_model(cfg, device=local_device(mesh))
-    params = model.init(args.seed, dtype=getattr(torch, cfg.compute_dtype))
+    params = model.init(args.seed, dtype=getattr(torch, cfg.compute_dtype), mesh=mesh)
     cache = model.init_cache(args.batch, args.prompt_len + args.gen)
     if cfg.family == "encdec":
         gen = torch.Generator(device=model.device).manual_seed(1)
         frames = torch.randn((args.batch, cfg.enc_ctx, cfg.d_model), generator=gen,
                              device=model.device)
-        cache = encdec.prefill_cross(cfg, params, frames, cache)
+        cache = encdec.prefill_cross(cfg, params, _rows(frames, mesh), cache)
     step = make_serve_step(model)
 
     rng = np.random.default_rng(args.seed)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
-                             dtype=torch.int32, device=model.device)
+    prompt = _rows(torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                (args.batch, args.prompt_len)),
+                                   dtype=torch.int32, device=model.device), mesh)
     tok = None
+    reset_comm_counts()
     t0 = time.perf_counter()
     for t in range(args.prompt_len):
         tok, cache = step(params, cache, prompt[:, t:t + 1])
@@ -78,12 +102,19 @@ def _serve(args, cfg, mesh):
         generated.append(tok[:, 0].cpu().numpy())  # waits for the step
     dt = time.perf_counter() - t0
     out = np.stack(generated, axis=1)
+    n_steps = args.prompt_len + args.gen
     summary = {
         "arch": cfg.name, "n_layers": cfg.n_layers, "batch": args.batch, "generated": args.gen,
-        "tokens_per_s": round(args.batch * (args.prompt_len + args.gen) / dt, 1), "decode_s": dt,
+        "tokens_per_s": round(args.batch * n_steps / dt, 1), "decode_s": dt,
         "sample_tokens": out[0][:8].tolist(), "device": str(model.device),
+        "mesh": axis_sizes(mesh),
+        "peak_memory_gib": (torch.cuda.max_memory_allocated(model.device) / 2 ** 30
+                            if model.device.type == "cuda" else None),
+        "collectives_per_step": {k: v / n_steps for k, v in sorted(comm_counts.items())
+                                 if not k.endswith("_bytes")},
     }
-    print(json.dumps(summary))
+    if dist.get_rank() == 0:
+        print(json.dumps(summary))
     return summary
 
 

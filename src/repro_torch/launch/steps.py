@@ -19,7 +19,8 @@ from ..models import ModelApi
 from ..models.layers import loss_denominator
 from ..optim import AdamWConfig, AdamWState, cosine_schedule
 from ..optim.adamw import adamw_update_
-from ..parallel.sharding import all_reduce_, batch_groups, current_mesh, sharding_of
+from ..parallel.sharding import (TP_PENDING, all_reduce_, batch_groups, current_mesh,
+                                 model_axis, sharding_of)
 
 
 def make_train_step(model: ModelApi, opt_cfg: AdamWConfig, total_steps: int = 10_000,
@@ -41,12 +42,15 @@ def make_train_step(model: ModelApi, opt_cfg: AdamWConfig, total_steps: int = 10
     forward and divides each rank's sum(w * nll); a sharded leaf's gradient
     is reduce-scattered over ``data`` by its gather's backward and summed
     over the other batch axes, a replicated leaf's is summed over every
-    batch axis; the reported loss is the global one."""
+    batch axis; the reported loss is the global one. A mesh whose ``model``
+    axis is above 1 raises (``sharding.TP_PENDING``)."""
     if warmup_steps < 0:
         warmup_steps = max(min(100, total_steps // 10), 1)
 
     def train_step(params, opt_state: AdamWState, batch):
         mesh = current_mesh()
+        if model_axis(mesh) > 1:
+            raise NotImplementedError(TP_PENDING)
         params.requires_grad_(True)
         named = dict(params.named_parameters())
         if mesh is not None:
@@ -71,7 +75,8 @@ def make_train_step(model: ModelApi, opt_cfg: AdamWConfig, total_steps: int = 10
 
 def make_serve_step(model: ModelApi):
     """(params, cache, tokens (B, 1)) -> (greedy next tokens (B, 1) int32,
-    cache)."""
+    cache). The argmax runs over the whole vocab (gathered under tensor
+    parallelism), so ties go to the first index as in the unsharded step."""
     @torch.no_grad()
     def serve_step(params, cache, tokens):
         logits, new_cache = model.decode_step(params, cache, tokens)

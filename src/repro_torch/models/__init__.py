@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..parallel.sharding import empty_blocks
 from . import encdec, hybrid, ssm, transformer, vlm
 from .layers import weighted_cross_entropy
 
@@ -43,7 +44,7 @@ _EXTRA_INPUT = {"encdec": "frames", "vlm": "patches"}
 class ModelApi:
     cfg: ArchConfig
     device: torch.device
-    init: Callable[..., nn.Module]  # (seed, dtype=None) -> model with drawn weights
+    init: Callable[..., nn.Module]  # (seed, dtype=None, mesh=None) -> model with drawn weights
     forward: Callable[..., torch.Tensor]  # (model, batch) -> logits (B, S, V)
     loss: Callable[..., tuple]  # (model, batch) -> (loss, {"ce", "tokens"})
     init_cache: Callable[..., Any]  # (batch_size, max_len) -> cache
@@ -94,13 +95,19 @@ def build_model(cfg: ArchConfig, impl: str = "auto", device=None) -> ModelApi:
     mod = _family(cfg)[0]
     dev = resolve_device(device)
 
-    def init(seed: int = 0, dtype: Optional[torch.dtype] = None) -> nn.Module:
+    def init(seed: int = 0, dtype: Optional[torch.dtype] = None, mesh=None) -> nn.Module:
         """Weights drawn on the device from a generator seeded with ``seed``
         (float32 draws, stored in ``dtype``, default ``cfg.param_dtype``;
-        serving passes the compute dtype so the cast is done once)."""
+        serving passes the compute dtype so the cast is done once). Under
+        ``mesh`` each rank keeps its block of every leaf as it is drawn
+        (``parallel.sharding.empty_blocks``): the draws are the unsharded
+        model's, layer by layer, and no rank holds more than one whole
+        layer leaf."""
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        return mod.init_params(cfg, new_model(cfg, dev, dtype), gen)
+        if mesh is None:
+            return mod.init_params(cfg, new_model(cfg, dev, dtype), gen)
+        return mod.init_params(cfg, empty_blocks(new_model(cfg, "meta", dtype), mesh, dev), gen)
 
     extra = _EXTRA_INPUT.get(cfg.family)
 

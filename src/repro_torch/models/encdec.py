@@ -159,12 +159,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=Non
     dt = dtype or L.compute_dtype(cfg)
     hkv, hd, nl = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
 
-    def zeros(slots):
-        return torch.zeros((nl, batch, slots, hkv, hd), dtype=dt, device=device)
-
-    return {"pos": 0, "k": zeros(max_len), "v": zeros(max_len),
-            "kv_pos": torch.full((nl, batch, max_len), -1, dtype=torch.int32, device=device),
-            "cross_k": zeros(cfg.enc_ctx), "cross_v": zeros(cfg.enc_ctx)}
+    kv = ((nl, batch, max_len, hkv, hd), dt, 0)
+    cross = ((nl, batch, cfg.enc_ctx, hkv, hd), dt, 0)
+    return {"pos": 0, **L.alloc_cache(cfg, {
+        "k": kv, "v": kv, "kv_pos": ((nl, batch, max_len), torch.int32, -1),
+        "cross_k": cross, "cross_v": cross}, batch, device)}
 
 
 @torch.no_grad()

@@ -136,15 +136,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=Non
     g = n_groups(cfg)
     di, n, kc, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv, cfg.ssm_head_dim
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    return {
-        "pos": 0,
-        "conv": torch.zeros((cfg.n_layers, batch, kc - 1, di), dtype=dt, device=device),
-        "h": torch.zeros((cfg.n_layers, batch, di // ph, n, ph), dtype=torch.float32,
-                         device=device),
-        "attn_k": torch.zeros((g, batch, max_len, hkv, hd), dtype=dt, device=device),
-        "attn_v": torch.zeros((g, batch, max_len, hkv, hd), dtype=dt, device=device),
-        "attn_pos": torch.full((g, batch, max_len), -1, dtype=torch.int32, device=device),
-    }
+    i32 = torch.int32
+    return {"pos": 0, **L.alloc_cache(cfg, {
+        "conv": ((cfg.n_layers, batch, kc - 1, di), dt, 0),
+        "h": ((cfg.n_layers, batch, di // ph, n, ph), torch.float32, 0),
+        "attn_k": ((g, batch, max_len, hkv, hd), dt, 0),
+        "attn_v": ((g, batch, max_len, hkv, hd), dt, 0),
+        "attn_pos": ((g, batch, max_len), i32, -1)}, batch, device)}
 
 
 @torch.no_grad()

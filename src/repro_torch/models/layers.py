@@ -1,16 +1,29 @@
 """Shared building blocks of the port's language models (plain PyTorch);
-counterpart of ``repro.models.layers``."""
+counterpart of ``repro.models.layers``.
+
+Tensor parallelism (serving on a ``model`` axis above 1): a rank holds its
+block of every leaf that the rule table puts on ``model``
+(``parallel.sharding``), so a layer reads its local head, kv-head, ffn and
+channel counts off its own leaves (``local_counts``); a product whose
+contracting dim is on ``model`` ends in one all-reduce (``row_parallel``)
+and the logits are gathered along the vocab (``vocab_logits``). A decode
+cache is allocated as ``launch.specs.cache_pspecs`` places it
+(``alloc_cache``).
+"""
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from ..parallel.sharding import embed_rows, gather_fsdp, gather_params, sharding_of
+from ..parallel.sharding import (axis_sizes, current_mesh, embed_rows, gather_fsdp,
+                                 gather_params, sharding_of, tp_all_gather, tp_all_reduce,
+                                 tp_rank)
 
 
 def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -60,9 +73,106 @@ def layer_shardings(blocks, stacked: bool = True) -> dict:
 
 
 def weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """A top-level weight (head, shared block) in ``dtype``, gathered whole
-    where it is sharded."""
+    """A top-level weight (head, shared block) in ``dtype``, its ``data``
+    shard gathered; a ``model`` block stays this rank's."""
     return gather_fsdp(cast(w, dtype), sharding_of(w))
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalCounts:
+    """A layer's counts on this rank, read off its leaves: q heads (first
+    global head ``q0``), kv heads, ffn columns and Mamba channels, and
+    whether each is a ``model`` block (then its row-parallel product ends in
+    an all-reduce). The kv heads of a block of q heads are ``kv0`` ..
+    ``kv0 + kv_heads``; where ``wk`` / ``wv`` are whole (MQA, kv heads that
+    do not divide) ``kv_whole`` is set and a rank computes every kv head."""
+
+    rank: int
+    heads: int = 0
+    q0: int = 0
+    heads_sharded: bool = False
+    kv_heads: int = 0
+    kv0: int = 0
+    kv_whole: bool = True
+    ffn_sharded: bool = False
+    inner: int = 0
+    inner_sharded: bool = False
+
+
+def local_counts(cfg, p: dict) -> LocalCounts:
+    """``LocalCounts`` of one layer's (cast) parameters ``p``."""
+    r = tp_rank()
+    kw: dict[str, Any] = {}
+    if "wq" in p:
+        h, hkv = cfg.padded_heads, cfg.n_kv_heads
+        heads = p["wq"].shape[1]
+        kw.update(heads=heads, q0=r * heads if heads < h else 0, heads_sharded=heads < h)
+        group = h // hkv
+        if p["wk"].shape[1] < hkv:  # a kv block beside its q block
+            kw.update(kv_heads=p["wk"].shape[1], kv0=kw["q0"] // group, kv_whole=False)
+        elif heads < h:  # whole kv: the heads that this q block reads
+            if heads % group and group % heads:
+                raise ValueError(f"a block of {heads} q heads does not align with kv groups "
+                                 f"of {group}")
+            kw.update(kv_heads=max(heads // group, 1), kv0=kw["q0"] // group)
+        else:
+            kw.update(kv_heads=hkv)
+    ff = p.get("w_up", p.get("we_up"))
+    if ff is not None:
+        kw["ffn_sharded"] = ff.shape[-1] < cfg.d_ff
+    if "x_proj" in p:  # Mamba-1: in_proj holds [x_r | z_r]
+        inner = p["in_proj"].shape[-1] // 2
+        kw.update(inner=inner, inner_sharded=inner < cfg.d_inner)
+    return LocalCounts(rank=r, **kw)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, sharded: bool) -> torch.Tensor:
+    """``matmul(x, w)``, summed over the ``model`` group where ``w``'s
+    contracting dim is a ``model`` block (one all-reduce, in the product's
+    type: the partial sums are rounded to it first, as the JAX package's
+    partitioner rounds them)."""
+    y = matmul(x, w)
+    return tp_all_reduce(y.contiguous()) if sharded else y
+
+
+def vocab_logits(x: torch.Tensor, head: torch.Tensor, vocab_size: int,
+                 cap: float = 0.0) -> torch.Tensor:
+    """``x @ head`` (head (D, V) or this rank's (D, V / m) block), soft-capped
+    in float32 where ``cap`` is set, then gathered along the vocab."""
+    logits = matmul(x, head)
+    if cap > 0:
+        logits = logits.float()
+        # In place where autograd does not record it: a prefill's float32
+        # logits are the largest tensor of its peak (8.4 GB at gemma2-27b's
+        # B 4 x 2048), and the same ops in place give the same bits.
+        logits = (softcap(logits, cap) if logits.requires_grad
+                  else logits.div_(cap).tanh_().mul_(cap))
+    return tp_all_gather(logits, -1) if head.shape[-1] < vocab_size else logits
+
+
+def alloc_cache(cfg, leaves: dict, batch: int, device) -> dict:
+    """A decode cache from ``leaves`` (name -> (global shape, dtype, fill
+    value)) of global batch ``batch``: whole without a mesh; under a live
+    mesh each rank's block as ``launch.specs.cache_pspecs`` places it, and
+    for every group whose slots are split over ``model`` the global slot
+    count under ``slots{i}`` (``k{i}`` / ``kv_pos{i}``)."""
+    mesh = current_mesh()
+    if mesh is None or not hasattr(mesh, "get_group"):
+        return {k: torch.full(shape, fill, dtype=dt, device=device)
+                for k, (shape, dt, fill) in leaves.items()}
+    from ..launch.specs import cache_pspecs, local_shape, seq_axes
+    specs = cache_pspecs(cfg, {k: v[0] for k, v in leaves.items()}, mesh, batch)
+    out: dict[str, Any] = {}
+    for k, (shape, dt, fill) in leaves.items():
+        axes = seq_axes(specs[k]) if len(shape) >= 3 and k[0] in "kv" else ()
+        if any(a != "model" for a in axes):
+            raise NotImplementedError(
+                f"a cache whose slots are split over the data-parallel axes (a batch of "
+                f"{batch} that does not divide over them) is not ported")
+        out[k] = torch.full(local_shape(shape, specs[k], mesh), fill, dtype=dt, device=device)
+        if k.startswith("k") and k[1:].isdigit() and axes and axis_sizes(mesh)["model"] > 1:
+            out[f"slots{k[1:]}"] = shape[2]
+    return out
 
 
 def apply_layers(cfg, blocks, x: torch.Tensor, layer_fn: Callable, group: int = 1,
@@ -159,6 +269,17 @@ def _normal(shape: Sequence[int], gen: torch.Generator, device) -> torch.Tensor:
     return torch.randn(tuple(shape), generator=gen, dtype=torch.float32, device=device)
 
 
+def _block_sharding(out: torch.Tensor, lead: int):
+    """(the global shape of one trailing block of ``out``, the ``Sharding``
+    of that block or None)."""
+    sh = sharding_of(out)
+    if sh is None:
+        return tuple(out.shape[lead:]), None
+    for _ in range(lead):
+        sh = sh.per_layer()
+    return sh.global_shape, sh
+
+
 @torch.no_grad()
 def dense_fill_(out: torch.Tensor, gen: torch.Generator, lead: int = 1, in_axis: int = 0,
                 scale: float = 1.0) -> torch.Tensor:
@@ -166,17 +287,22 @@ def dense_fill_(out: torch.Tensor, gen: torch.Generator, lead: int = 1, in_axis:
     / sqrt(fan_in) over the dims after its ``lead`` stacked axes (layers,
     experts), which do not count in the fan-in. Drawn in float32 one trailing
     block (a layer's or an expert's leaf) at a time and stored in ``out``'s
-    type, so the float32 transient is one block, never the whole stack."""
-    shape = out.shape[lead:]
+    type, so the float32 transient is one block, never the whole stack. A
+    sharded ``out`` (``parallel.sharding.empty_blocks``) draws each global
+    block and keeps this rank's: the draws are the unsharded model's."""
+    shape, sh = _block_sharding(out, lead)
     s = scale / math.sqrt(shape[in_axis])
-    for block in out.view(-1, *shape):
-        block.copy_(_normal(shape, gen, out.device).mul_(s))
+    for block in out.view(-1, *out.shape[lead:]):
+        full = _normal(shape, gen, out.device).mul_(s)
+        block.copy_(full if sh is None else sh.local(full))
     return out
 
 
 @torch.no_grad()
 def embed_fill_(out: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-    return out.copy_(_normal(out.shape, gen, out.device).mul_(0.02))
+    shape, sh = _block_sharding(out, 0)
+    full = _normal(shape, gen, out.device).mul_(0.02)
+    return out.copy_(full if sh is None else sh.local(full))
 
 
 def loss_denominator(labels: torch.Tensor, weights: Optional[torch.Tensor] = None

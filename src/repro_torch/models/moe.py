@@ -13,7 +13,10 @@ global batch does not divide into the ranks, where the JAX package would
 fall back to G = 1). Dispatch is ``index_add`` into an (E C + 1, D)
 buffer (the last row takes the dropped assignments), the expert products are
 batched ``matmul`` over E, and the combine is a gather; the JAX package
-computes these outside any Pallas kernel too.
+computes these outside any Pallas kernel too. Under tensor parallelism the
+router stays whole, so the dispatch is the same on every ``model`` rank;
+``we_gate`` / ``we_up`` hold the rank's ffn columns and ``we_down`` its ffn
+rows, and the combined output is summed over ``model`` once.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..parallel.sharding import tp_all_reduce
 from . import layers as L
 
 # Where a list is set (``recording_routing``), each ``moe_ffn`` call appends
@@ -86,8 +90,10 @@ def route(cfg: ArchConfig, xf: torch.Tensor, router: torch.Tensor):
     return gate_vals, gate_idx, slot, keep
 
 
-def moe_ffn(cfg: ArchConfig, x: torch.Tensor, p: dict) -> torch.Tensor:
-    """x (B, S, D) -> (B, S, D)."""
+def moe_ffn(cfg: ArchConfig, x: torch.Tensor, p: dict, tp_sharded: bool = False
+            ) -> torch.Tensor:
+    """x (B, S, D) -> (B, S, D); ``tp_sharded``: the experts' ffn dim is
+    this rank's block, so the combine is a partial sum, all-reduced."""
     b, s, d = x.shape
     t, e, k = b * s, cfg.n_experts, cfg.n_experts_per_tok
     c = capacity(cfg, t)
@@ -104,7 +110,10 @@ def moe_ffn(cfg: ArchConfig, x: torch.Tensor, p: dict) -> torch.Tensor:
     out = torch.cat([out, out.new_zeros((1, d))])  # the spill row reads zeros
     gates = gate_vals.reshape(t * k, 1).to(out.dtype) * kept.to(out.dtype)
     weighted = torch.index_select(out, 0, slot) * gates
-    return weighted.reshape(t, k, d).sum(dim=1).reshape(b, s, d).to(x.dtype)
+    combined = weighted.reshape(t, k, d).sum(dim=1)
+    if tp_sharded:
+        combined = tp_all_reduce(combined)
+    return combined.reshape(b, s, d).to(x.dtype)
 
 
 def router_aux_loss(cfg: ArchConfig, x: torch.Tensor, p: dict) -> torch.Tensor:

@@ -9,6 +9,13 @@ decode); the Mamba-2 scan through ``mamba2_scan`` (plain PyTorch on every
 device: no kernel, as in the JAX package). Decode is O(1) per token: a K-1
 conv tail and the recurrent state per layer, updated in place by
 ``decode_step``.
+
+Tensor parallelism (Mamba-1, serving on a ``model`` axis above 1): a rank
+holds its block of the DI channels -- ``in_proj`` as ``[x_r | z_r]``
+(``tp_fused``), ``conv_w``, ``conv_b``, ``dt_proj``'s columns, ``dt_bias``,
+``a_log``, ``ssm_d``, ``x_proj``'s and ``out_proj``'s rows -- and of the
+``conv`` / ``h`` cache; ``x_proj``'s (dt, B, C) output and ``out_proj``'s
+are all-reduced, and the scan runs on DI / m channels.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..kernels.mamba_scan.ops import mamba1_scan, mamba2_scan
+from ..parallel.sharding import tp_all_reduce
 from . import layers as L
 
 
@@ -59,6 +67,8 @@ class MambaLM(nn.Module):
             raise ValueError(f"MambaLM takes the ssm family with Mamba-1 layers, not "
                              f"{cfg.family!r} / Mamba-{cfg.ssm_version}")
         self.cfg = cfg
+        # in_proj (D, 2 DI) is [x | z]: a model rank holds [x_r | z_r]
+        self.tp_fused = {"blocks.in_proj": 2}
         dtype = dtype or getattr(torch, cfg.param_dtype)
 
         def empty(shape):
@@ -92,7 +102,7 @@ def init_mamba1_stack(cfg: ArchConfig, blocks: nn.ParameterDict, gen: torch.Gene
     L.dense_fill_(blocks["dt_proj"], gen, scale=r ** 0.5 * 0.1)
     blocks["dt_bias"].fill_(math.log(math.expm1(0.01)))
     arange = torch.arange(1, n + 1, dtype=torch.float32, device=dev)
-    blocks["a_log"].copy_(torch.log(arange).expand(n_layers, di, n))
+    blocks["a_log"].copy_(torch.log(arange).expand(blocks["a_log"].shape))
     blocks["ssm_d"].fill_(1.0)
     L.dense_fill_(blocks["out_proj"], gen,
                   scale=1.0 / math.sqrt(2 * cfg.n_layers) * math.sqrt(di))
@@ -149,19 +159,24 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def mamba1_block(cfg: ArchConfig, x, p, state=None, impl: str = "auto"):
     """x (B, S, D); state None (prefill) or dict(conv, h) for decode.
     Returns (out, new_state)."""
-    r, n, di = cfg.resolved_dt_rank, cfg.ssm_state, cfg.d_inner
+    r, n = cfg.resolved_dt_rank, cfg.ssm_state
+    tp = L.local_counts(cfg, p)
+    di = tp.inner  # this rank's channels
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
     xi, z = torch.matmul(h, p["in_proj"]).split([di, di], dim=-1)
     xi, new_conv = causal_conv(xi, p["conv_w"], p["conv_b"],
                                None if state is None else state["conv"])
     xi = F.silu(xi)
-    dt_r, bmat, cmat = torch.matmul(xi, p["x_proj"]).split([r, n, n], dim=-1)
+    proj = torch.matmul(xi, p["x_proj"])
+    if tp.inner_sharded:
+        proj = tp_all_reduce(proj)
+    dt_r, bmat, cmat = proj.split([r, n, n], dim=-1)
     dt = F.softplus(torch.matmul(dt_r, p["dt_proj"]) + p["dt_bias"])
     a = -torch.exp(p["a_log"].float())
     y, h_new = mamba1_scan(xi, dt, a, bmat, cmat, h0=None if state is None else state["h"],
                            chunk=cfg.ssm_chunk, impl=impl)
     y = (y + xi * p["ssm_d"]) * F.silu(z)
-    out = x + torch.matmul(y, p["out_proj"])
+    out = x + L.row_parallel(y, p["out_proj"], tp.inner_sharded)
     return out, (None if state is None else {"conv": new_conv, "h": h_new})
 
 
@@ -192,7 +207,7 @@ def _logits(cfg: ArchConfig, model: MambaLM, x: torch.Tensor) -> torch.Tensor:
     cdt = L.compute_dtype(cfg)
     x = L.rms_norm(x, L.cast(model.final_norm, cdt), cfg.norm_eps)
     head = L.weight(model.embed, cdt).t() if cfg.tie_embeddings else L.weight(model.head, cdt)
-    return torch.matmul(x, head)
+    return L.vocab_logits(x, head, cfg.vocab_size)
 
 
 def forward(cfg: ArchConfig, model: MambaLM, tokens: torch.Tensor,
@@ -208,14 +223,13 @@ def forward(cfg: ArchConfig, model: MambaLM, tokens: torch.Tensor,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=None) -> dict:
     """Per-layer conv tails (L, B, K-1, DI) and float32 states (L, B, DI, N);
-    ``max_len`` is not needed (the state has a fixed size)."""
+    ``max_len`` is not needed (the state has a fixed size). Under a mesh each
+    rank holds its block (``layers.alloc_cache``: DI on ``model``)."""
     dt = dtype or L.compute_dtype(cfg)
     di, n, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
-    return {
-        "pos": 0,
-        "conv": torch.zeros((cfg.n_layers, batch, k - 1, di), dtype=dt, device=device),
-        "h": torch.zeros((cfg.n_layers, batch, di, n), dtype=torch.float32, device=device),
-    }
+    return {"pos": 0, **L.alloc_cache(cfg, {
+        "conv": ((cfg.n_layers, batch, k - 1, di), dt, 0),
+        "h": ((cfg.n_layers, batch, di, n), torch.float32, 0)}, batch, device)}
 
 
 @torch.no_grad()

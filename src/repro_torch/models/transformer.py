@@ -25,11 +25,23 @@ patch embeddings, ``vlm.py``).
     caches for global layers; ``kv_pos`` holds absolute positions (-1 for an
     empty slot), so masks stay right after wrap-around. ``decode_step``
     writes the caches in place (the JAX version returns new ones).
+  * Tensor parallelism (serving on a ``model`` axis above 1, the JAX
+    package's GSPMD layout): a rank runs its block of q heads (and of kv
+    heads where they divide; else it computes every kv head and reads those
+    of its block), of ffn columns and of the vocab; ``wo`` and ``w_down``
+    end in one all-reduce each, the logits are gathered along the vocab.
+    The decode cache is laid out by ``launch.specs.cache_pspecs``: by kv
+    heads where they divide (``heads``), else by slots (``seq``): q is
+    gathered over ``model``, each rank writes the new key only where it owns
+    the slot (ring slots too), attends over its slots with every q head and
+    returns (o, log-sum-exp) from the decode kernel, and the ranks' partials
+    are merged by log-sum-exp before each rank takes its head block into
+    ``wo``.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 from torch import nn
@@ -37,6 +49,7 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import AttnSpec
+from ..parallel.sharding import sharding_of, tp_all_gather
 from . import layers as L
 from . import moe
 
@@ -102,8 +115,11 @@ def init_params(cfg: ArchConfig, model: DenseLM, gen: torch.Generator) -> DenseL
             L.dense_fill_(p, gen, **draws[name])
         else:
             p.zero_()
-    # Padded heads never contribute: their rows of wo are zero.
-    model.blocks["wo"][:, cfg.n_heads:] = 0.0
+    # Padded heads never contribute: their rows of wo are zero (the rows of
+    # this rank's block of heads past n_heads, under tensor parallelism).
+    wo = model.blocks["wo"]
+    sh = sharding_of(wo)
+    wo[:, max(cfg.n_heads - (sh.offset(1) if sh is not None else 0), 0):] = 0.0
     model.final_norm.zero_()
     if not cfg.tie_embeddings:
         L.dense_fill_(model.head, gen, lead=0)
@@ -136,26 +152,37 @@ def _project_qkv(cfg: ArchConfig, x, p, positions):
     return L.apply_rope(q, positions, cfg.rope_theta), L.apply_rope(k, positions, cfg.rope_theta), v
 
 
-def _ffn(cfg: ArchConfig, x, p):
+def _own_kv(tp: L.LocalCounts, k: torch.Tensor) -> torch.Tensor:
+    """The kv heads of this rank's block of q heads, where ``wk`` / ``wv``
+    are whole and the q heads a block (every head otherwise)."""
+    if tp.kv_whole and tp.heads_sharded:
+        return k[:, :, tp.kv0:tp.kv0 + tp.kv_heads]
+    return k
+
+
+def _ffn(cfg: ArchConfig, x, p, tp: Optional[L.LocalCounts] = None):
+    sharded = tp is not None and tp.ffn_sharded
     if cfg.family == "moe":
-        return moe.moe_ffn(cfg, x, p)
+        return moe.moe_ffn(cfg, x, p, tp_sharded=sharded)
     if cfg.act in ("silu", "gelu"):
         h = L.activate(L.matmul(x, p["w_gate"]), cfg.act) * L.matmul(x, p["w_up"])
     else:
         h = L.activate(L.matmul(x, p["w_up"]), cfg.act)
-    return L.matmul(h, p["w_down"])
+    return L.row_parallel(h, p["w_down"], sharded)
 
 
-def _out(attn: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """attn (B, S, H, hd) by wo (H, hd, D) -> (B, S, D)."""
-    return L.matmul(attn.reshape(*attn.shape[:2], -1), wo.reshape(-1, wo.shape[-1]))
+def _out(attn: torch.Tensor, wo: torch.Tensor, sharded: bool = False) -> torch.Tensor:
+    """attn (B, S, H, hd) by wo (H, hd, D) -> (B, S, D); summed over
+    ``model`` where the heads are a block."""
+    return L.row_parallel(attn.reshape(*attn.shape[:2], -1), wo.reshape(-1, wo.shape[-1]),
+                          sharded)
 
 
-def _residual_tail(cfg: ArchConfig, x, attn, p):
+def _residual_tail(cfg: ArchConfig, x, attn, p, tp: Optional[L.LocalCounts] = None):
     if cfg.post_norm:
         attn = L.rms_norm(attn, p["attn_post_norm"], cfg.norm_eps)
     x = x + attn
-    ff = _ffn(cfg, L.rms_norm(x, p["mlp_norm"], cfg.norm_eps), p)
+    ff = _ffn(cfg, L.rms_norm(x, p["mlp_norm"], cfg.norm_eps), p, tp)
     if cfg.post_norm:
         ff = L.rms_norm(ff, p["mlp_post_norm"], cfg.norm_eps)
     return x + ff
@@ -163,10 +190,38 @@ def _residual_tail(cfg: ArchConfig, x, attn, p):
 
 def block_apply(cfg: ArchConfig, x, p, positions, spec: AttnSpec, impl: str = "auto"):
     """One transformer block over a whole sequence (its own keys)."""
+    tp = L.local_counts(cfg, p)
     h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     q, k, v = _project_qkv(cfg, h, p, positions)
-    attn = flash_attention(q, k, v, positions, positions, spec, impl=impl)
-    return _residual_tail(cfg, x, _out(attn, p["wo"]), p)
+    attn = flash_attention(q, _own_kv(tp, k), _own_kv(tp, v), positions, positions, spec,
+                           impl=impl)
+    return _residual_tail(cfg, x, _out(attn, p["wo"], tp.heads_sharded), p, tp)
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Attention over the union of R disjoint key sets from each set's
+    output ``o`` (R, B, Sq, H, hd) and log-sum-exp ``lse`` (R, B, Sq, H)
+    (-1e30 where a set holds no visible key): sum_r e^(lse_r - M) o_r /
+    sum_r e^(lse_r - M), M the largest lse, in float32. A row no set sees
+    stays 0."""
+    mx = lse.amax(dim=0)
+    w = torch.exp(lse - mx)
+    return (o.float() * w[..., None]).sum(dim=0) / w.sum(dim=0)[..., None]
+
+
+def _seq_attention(q, kc, vc, positions, pc, spec, tp, impl):
+    """Decode attention over a cache whose slots are split over ``model``:
+    every q head (gathered where they are a block) over this rank's slots,
+    (o, lse) merged over the ranks by one all-gather, then this rank's
+    block of heads."""
+    if tp.heads_sharded:
+        q = tp_all_gather(q, 2)
+    o, lse = flash_attention(q, kc, vc, positions, pc, spec, kv_valid=pc >= 0, impl=impl,
+                             return_lse=True)
+    part = torch.cat([o.float(), lse[..., None]], dim=-1)  # (B, 1, H, hd + 1)
+    parts = tp_all_gather(part[None], 0)
+    out = merge_partials(parts[..., :-1], parts[..., -1]).to(q.dtype)
+    return out[:, :, tp.q0:tp.q0 + tp.heads] if tp.heads_sharded else out
 
 
 # ---------------------------------------------------------------------------
@@ -184,20 +239,12 @@ def _embed(cfg: ArchConfig, model: DenseLM, tokens: torch.Tensor,
 
 
 def logits_of(cfg: ArchConfig, model: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Final norm, head (the tied embedding or ``head``) and soft-cap."""
+    """Final norm, head (the tied embedding or ``head``, this rank's vocab
+    block under tensor parallelism) and soft-cap, gathered along the vocab."""
     cdt = L.compute_dtype(cfg)
     x = L.rms_norm(x, L.cast(model.final_norm, cdt), cfg.norm_eps)
     head = L.weight(model.embed, cdt).t() if cfg.tie_embeddings else L.weight(model.head, cdt)
-    logits = L.matmul(x, head)
-    if cfg.logit_softcap > 0:
-        cap = cfg.logit_softcap
-        logits = logits.float()
-        # In place where autograd does not record it: a prefill's float32
-        # logits are the largest tensor of its peak (8.4 GB at gemma2-27b's
-        # B 4 x 2048), and the same ops in place give the same bits.
-        logits = (L.softcap(logits, cap) if logits.requires_grad
-                  else logits.div_(cap).tanh_().mul_(cap))
-    return logits
+    return L.vocab_logits(x, head, cfg.vocab_size, cfg.logit_softcap)
 
 
 def forward(cfg: ArchConfig, model: DenseLM, tokens: torch.Tensor,
@@ -229,18 +276,19 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=Non
     """KV caches per position in the layer group: ``k{i}``/``v{i}``
     (L / group, B, slots, Hkv, hd) and ``kv_pos{i}`` (L / group, B, slots),
     -1 for an empty slot; windowed layers get W slots. ``pos`` is the
-    number of tokens decoded so far."""
+    number of tokens decoded so far. Under a mesh each rank holds its block
+    (``layers.alloc_cache``; ``slots{i}``: the global slot count where the
+    slots are split over ``model``)."""
     dt = dtype or L.compute_dtype(cfg)
     specs = attn_specs(cfg)
     n = cfg.n_layers // len(specs)
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    cache: dict[str, Any] = {"pos": 0}
+    leaves = {}
     for i, spec in enumerate(specs):
         slots = _cache_len(spec, max_len)
-        cache[f"k{i}"] = torch.zeros((n, batch, slots, hkv, hd), dtype=dt, device=device)
-        cache[f"v{i}"] = torch.zeros((n, batch, slots, hkv, hd), dtype=dt, device=device)
-        cache[f"kv_pos{i}"] = torch.full((n, batch, slots), -1, dtype=torch.int32, device=device)
-    return cache
+        leaves[f"k{i}"] = leaves[f"v{i}"] = ((n, batch, slots, hkv, hd), dt, 0)
+        leaves[f"kv_pos{i}"] = ((n, batch, slots), torch.int32, -1)
+    return {"pos": 0, **L.alloc_cache(cfg, leaves, batch, device)}
 
 
 @torch.no_grad()
@@ -260,15 +308,23 @@ def decode_step(cfg: ArchConfig, model: DenseLM, cache: dict, tokens: torch.Tens
         i, li = layer % group, layer // group
         spec = specs[i]
         p = L.cast_params(p, cdt, shardings)
+        tp = L.local_counts(cfg, p)
         kc, vc, pc = cache[f"k{i}"][li], cache[f"v{i}"][li], cache[f"kv_pos{i}"][li]
-        slots = kc.shape[1]
+        slots = cache.get(f"slots{i}", kc.shape[1])  # global; this rank's are a block
         slot = pos % slots if spec.window > 0 else min(pos, slots - 1)
         h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
         q, k_new, v_new = _project_qkv(cfg, h, p, positions)
-        kc[:, slot] = k_new[:, 0].to(kc.dtype)
-        vc[:, slot] = v_new[:, 0].to(vc.dtype)
-        pc[:, slot] = pos
-        attn = flash_attention(q, kc, vc, positions, pc, spec, kv_valid=pc >= 0, impl=impl)
-        x = _residual_tail(cfg, x, _out(attn, p["wo"]), p)
+        split = slots != kc.shape[1]
+        slot -= tp.rank * kc.shape[1] if split else 0
+        if 0 <= slot < kc.shape[1]:  # this rank owns the slot
+            kc[:, slot] = k_new[:, 0].to(kc.dtype)
+            vc[:, slot] = v_new[:, 0].to(vc.dtype)
+            pc[:, slot] = pos
+        if split:
+            attn = _seq_attention(q, kc, vc, positions, pc, spec, tp, impl)
+        else:
+            attn = flash_attention(q, _own_kv(tp, kc), _own_kv(tp, vc), positions, pc, spec,
+                                   kv_valid=pc >= 0, impl=impl)
+        x = _residual_tail(cfg, x, _out(attn, p["wo"], tp.heads_sharded), p, tp)
     cache["pos"] = pos + 1
     return logits_of(cfg, model, x), cache

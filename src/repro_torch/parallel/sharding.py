@@ -23,9 +23,14 @@ scheduler's x / y / z decisions set the rows and sample weights of each
 rank's batch, and the gradient reduction across the ranks is eq. 15's
 |D_j|-weighted aggregation (``launch/steps.py``).
 
-Execution covers meshes whose ``model`` axis has size 1, in every style;
-on a larger ``model`` axis the placements are computed, and ``shard_params``
-raises (ROADMAP.md, tensor-parallel execution).
+Execution covers meshes whose ``model`` axis has size 1, in every style,
+and serving on a larger ``model`` axis in the ``serve`` and ``tp`` styles
+for the dense, MoE, Mamba-1 and VLM families: each rank keeps its block of
+every leaf on both axes (``Sharding``), a product whose contracting dim is
+on ``model`` ends in one ``tp_all_reduce``, and logits are gathered along
+the vocab (``tp_all_gather``). Training on such a mesh, the hybrid and
+encoder-decoder families on it, and the ``fsdp`` / ``tp_sp`` styles on it
+raise (ROADMAP.md, Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import re
 from collections import Counter
 from typing import Any, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -47,8 +53,12 @@ _MESH: Any = None
 #   "serve" weights TP-sharded on model and replicated over data
 _STYLE: str = "tp"
 
-TP_PENDING = ("tensor-parallel execution on a model axis above 1 is not ported "
+TP_PENDING = ("tensor-parallel training (a train step on a model axis above 1: the "
+              "f / g autograd pair, vocab-parallel cross-entropy) is not ported "
               "(ROADMAP.md, Queue 1 item 6)")
+# Families and styles that execute on a model axis above 1 (serving).
+TP_FAMILIES = ("dense", "moe", "ssm", "vlm")
+TP_STYLES = ("serve", "tp")
 
 # Collectives issued by this package since the last reset, and their bytes
 # (each rank's payload: what it sends into an all-gather, its full input
@@ -206,9 +216,25 @@ def shard_params_pspecs(params, mesh) -> dict[str, tuple]:
 # Placements on a live mesh
 # ---------------------------------------------------------------------------
 
-def _check_executable(mesh) -> None:
-    if axis_sizes(mesh).get("model", 1) > 1:
-        raise NotImplementedError(TP_PENDING)
+def model_axis(mesh) -> int:
+    """The size of ``mesh``'s ``model`` axis (1 without one)."""
+    return axis_sizes(mesh).get("model", 1) if mesh is not None else 1
+
+
+def _check_executable(mesh, params) -> None:
+    """Raises where a ``model`` axis above 1 meets what it does not run yet:
+    another family than ``TP_FAMILIES``, another style than ``TP_STYLES``."""
+    if model_axis(mesh) == 1:
+        return
+    family = getattr(getattr(params, "cfg", None), "family", None)
+    if family is not None and family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"tensor parallelism for the {family} family is not ported (ROADMAP.md, "
+            f"Queue 1 item 6); it runs on a model axis of 1")
+    if _STYLE not in TP_STYLES:
+        raise NotImplementedError(
+            f"the {_STYLE} style on a model axis above 1 is not ported (ROADMAP.md, "
+            f"Queue 1 item 6); serving takes {TP_STYLES}")
 
 
 def _coord(mesh, axes) -> tuple[int, int]:
@@ -223,47 +249,97 @@ def _coord(mesh, axes) -> tuple[int, int]:
     return idx, n
 
 
+def _cat(pieces, dim: int):
+    return torch.cat(pieces, dim) if isinstance(pieces[0], torch.Tensor) else \
+        np.concatenate(pieces, dim)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Sharding:
-    """A leaf's placement on a live mesh: its spec, its global shape and the
-    dim that holds its ``data`` shard (``None``: replicated)."""
+    """A leaf's placement on a live mesh: its spec, its global shape, and
+    ``parts``, the equal parts of its ``model`` dim that are blocked each on
+    its own (2 for Mamba-1's fused ``in_proj`` ``[x | z]``: a rank holds
+    ``[x_r | z_r]``, not block r of the concatenation, while the global
+    array keeps the JAX package's layout)."""
 
     mesh: Any
     spec: tuple
     global_shape: tuple[int, ...]
+    parts: int = 1
 
     @property
     def dim(self) -> Optional[int]:
+        """The dim that holds the ``data`` shard (``None``: replicated)."""
         return self.spec.index("data") if "data" in self.spec else None
+
+    @property
+    def tp_dim(self) -> Optional[int]:
+        """The dim that holds the ``model`` block (``None``: whole)."""
+        return self.spec.index("model") if "model" in self.spec else None
 
     @property
     def group(self):
         return self.mesh.get_group("data")
 
+    @property
+    def tp_group(self):
+        return self.mesh.get_group("model")
+
+    def _axes(self):
+        return ((self.dim, "data", 1), (self.tp_dim, "model", self.parts))
+
+    def offset(self, dim: int) -> int:
+        """Where this rank's block starts along ``dim`` of the global array
+        (a dim of one part)."""
+        for d, axis, parts in self._axes():
+            if d == dim:
+                if parts != 1:
+                    raise ValueError(f"dim {dim} holds {parts} parts blocked each on its own")
+                r, n = _coord(self.mesh, (axis,))
+                return r * (self.global_shape[dim] // n)
+        return 0
+
     def local(self, full):
         """This rank's block of the global array ``full`` (a tensor or a
-        numpy array)."""
+        numpy array): its ``data`` shard and its ``model`` block, part by
+        part."""
         if tuple(full.shape) != tuple(self.global_shape):
             raise ValueError(f"shape {tuple(full.shape)} is not the global shape "
                              f"{self.global_shape}")
-        if self.dim is None:
-            return full
-        r, n = _coord(self.mesh, ("data",))
-        size = full.shape[self.dim] // n
-        index = [slice(None)] * len(full.shape)
-        index[self.dim] = slice(r * size, (r + 1) * size)
-        return full[tuple(index)]
+        out = full
+        for dim, axis, parts in self._axes():
+            if dim is None:
+                continue
+            r, n = _coord(self.mesh, (axis,))
+            part = full.shape[dim] // parts
+            size = part // n
+            pieces = []
+            for j in range(parts):
+                index = [slice(None)] * len(full.shape)
+                index[dim] = slice(j * part + r * size, j * part + (r + 1) * size)
+                pieces.append(out[tuple(index)])
+            out = pieces[0] if parts == 1 else _cat(pieces, dim)
+        return out
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
-        """The global array from every rank's block (a collective over the
-        ``data`` axis; no autograd)."""
-        if self.dim is None:
-            return local.detach()
-        return all_gather(local.detach(), self.dim, self.group)
+        """The global array from every rank's block (collectives over the
+        ``data`` and ``model`` axes; no autograd)."""
+        out = local.detach()
+        if self.dim is not None:
+            out = all_gather(out, self.dim, self.group)
+        if self.tp_dim is not None:
+            d, n = self.tp_dim, dist.get_world_size(self.tp_group)
+            out = all_gather(out, d, self.tp_group)  # [part 0 | part 1 ...] of each rank
+            if self.parts > 1:
+                moved = out.movedim(d, -1)
+                s = moved.shape[-1] // (n * self.parts)
+                moved = moved.reshape(*moved.shape[:-1], n, self.parts, s).transpose(-3, -2)
+                out = moved.reshape(*moved.shape[:-3], -1).movedim(-1, d).contiguous()
+        return out
 
     def per_layer(self) -> "Sharding":
         """The placement of one layer's view of a stacked leaf."""
-        return Sharding(self.mesh, self.spec[1:], self.global_shape[1:])
+        return Sharding(self.mesh, self.spec[1:], self.global_shape[1:], self.parts)
 
 
 def sharding_of(t) -> Optional[Sharding]:
@@ -274,19 +350,30 @@ def param_shardings(params) -> dict[str, Optional[Sharding]]:
     return {k: sharding_of(p) for k, p in _named(params).items()}
 
 
+def _fused(params) -> dict[str, int]:
+    """name -> parts of the model's fused leaves (``tp_fused``)."""
+    return dict(getattr(params, "tp_fused", {}))
+
+
+def _placement(name: str, p: torch.Tensor, mesh, parts: dict) -> Sharding:
+    return Sharding(mesh, param_pspec(name, tuple(p.shape), mesh), tuple(p.shape),
+                    parts.get(name, 1))
+
+
 @torch.no_grad()
 def shard_params(params, mesh):
     """Keep each rank's block of every parameter of ``params`` (a module,
     whose parameters are replaced in place, or a name -> tensor mapping,
     for which a new dict is returned) under the rule table, and record each
-    leaf's ``Sharding`` on it. Raises on a ``model`` axis above 1."""
-    _check_executable(mesh)
-    named = _named(params)
+    leaf's ``Sharding`` on it. On a ``model`` axis above 1 only what
+    serving runs is accepted (``_check_executable``)."""
+    _check_executable(mesh, params)
+    parts = _fused(params)
     out = {}
-    for name, p in named.items():
-        sh = Sharding(mesh, param_pspec(name, tuple(p.shape), mesh), tuple(p.shape))
+    for name, p in _named(params).items():
+        sh = _placement(name, p, mesh, parts)
         local = sh.local(p.detach())
-        if sh.dim is not None:  # a block of its own, not a view of the global leaf
+        if sh.dim is not None or sh.tp_dim is not None:  # a block of its own
             local = local.clone(memory_format=torch.contiguous_format)
         if isinstance(p, torch.nn.Parameter):
             p.data = local
@@ -296,6 +383,29 @@ def shard_params(params, mesh):
         t._sharding = sh
         out[name] = t
     return params if hasattr(params, "named_parameters") else out
+
+
+@torch.no_grad()
+def empty_blocks(module: torch.nn.Module, mesh, device) -> torch.nn.Module:
+    """Replace every parameter of ``module`` (built on the meta device at
+    the global shapes) by an uninitialised one on ``device`` at the shape
+    of this rank's block, its ``Sharding`` recorded on it, so that the
+    initialisers draw each global block and keep this rank's
+    (``models.layers.dense_fill_``)."""
+    _check_executable(mesh, module)
+    parts = _fused(module)
+    for name, p in list(module.named_parameters()):
+        sh = _placement(name, p, mesh, parts)
+        local = torch.nn.Parameter(torch.empty(tuple(sh.local(p).shape), dtype=p.dtype,
+                                               device=device), requires_grad=p.requires_grad)
+        local._sharding = sh
+        owner, _, attr = name.rpartition(".")
+        parent = module.get_submodule(owner) if owner else module
+        if isinstance(parent, torch.nn.ParameterDict):
+            parent[attr] = local
+        else:
+            setattr(parent, attr, local)
+    return module
 
 
 def local_rows(x, mesh):
@@ -320,17 +430,18 @@ def batch_groups(mesh, skip: tuple[str, ...] = ()) -> list:
 # Collectives
 # ---------------------------------------------------------------------------
 
-def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def all_gather(x: torch.Tensor, dim: int, group, key: str = "all_gather") -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order. The
     ranks' blocks travel as they are stored and land one after another; the
     result is a view of them where ``dim`` is 0 or the group has one rank,
-    else one copy that interleaves them."""
+    else one copy that interleaves them. Counted under ``key``."""
     n = dist.get_world_size(group)
+    dim = dim % x.dim()
     x = x.contiguous()
     out = x.new_empty((n * x.numel(),))
     dist.all_gather_into_tensor(out, x.view(-1), group=group)
-    comm_counts["all_gather"] += 1
-    comm_counts["all_gather_bytes"] += x.numel() * x.element_size()
+    comm_counts[key] += 1
+    comm_counts[f"{key}_bytes"] += x.numel() * x.element_size()
     return out.view(n, *x.shape).movedim(0, dim).reshape(
         *x.shape[:dim], n * x.shape[dim], *x.shape[dim + 1:])
 
@@ -357,6 +468,38 @@ def all_reduce_(x: torch.Tensor, groups) -> torch.Tensor:
         comm_counts["all_reduce"] += 1
         comm_counts["all_reduce_bytes"] += x.numel() * x.element_size()
     return x
+
+
+def tp_size() -> int:
+    """The ``model`` axis size of the installed mesh (1 without one)."""
+    return model_axis(_MESH) if _MESH is not None else 1
+
+
+def tp_rank() -> int:
+    """This rank's index on the installed mesh's ``model`` axis."""
+    return _MESH.get_local_rank("model") if tp_size() > 1 else 0
+
+
+def tp_all_reduce(x: torch.Tensor) -> torch.Tensor:
+    """Sum ``x`` in place over the ``model`` group of the installed mesh
+    (the end of a product whose contracting dim is on ``model``), in its own
+    type; returns ``x``. The identity on a ``model`` axis of 1. A forward
+    collective (serving): no autograd."""
+    if tp_size() == 1:
+        return x
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=_MESH.get_group("model"))
+    comm_counts["tp_all_reduce"] += 1
+    comm_counts["tp_all_reduce_bytes"] += x.numel() * x.element_size()
+    return x
+
+
+def tp_all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ``model`` group's blocks of ``x`` concatenated along ``dim`` in
+    rank order (logits along the vocab, q along the heads); ``x`` itself on
+    a ``model`` axis of 1. No autograd."""
+    if tp_size() == 1:
+        return x
+    return all_gather(x, dim, _MESH.get_group("model"), key="tp_all_gather")
 
 
 def _global_shape(shape: torch.Size, dim: int, n: int) -> tuple[int, ...]:
@@ -450,9 +593,18 @@ class _GatherRows(torch.autograd.Function):
 
 
 def embed_rows(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The embedding rows of ``tokens`` in ``dtype``; a sharded table is
-    gathered (in ``dtype``) first."""
+    """The embedding rows of ``tokens`` in ``dtype``; a table sharded on
+    ``data`` is gathered (in ``dtype``) first. A table whose vocab is on
+    ``model`` looks up the tokens of its block (zero rows elsewhere) and sums
+    them over ``model``: one term of the sum is not zero, so the rows are
+    the unsharded lookup's, bit for bit."""
     sh = sharding_of(table)
+    if sh is not None and sh.tp_dim == 0 and tp_size() > 1:
+        w = table.to(dtype) if sh.dim is None else all_gather(table.to(dtype), sh.dim, sh.group)
+        idx = tokens.long() - sh.offset(0)
+        inside = (idx >= 0) & (idx < w.shape[0])
+        rows = w[idx.clamp(0, w.shape[0] - 1)]
+        return tp_all_reduce(torch.where(inside[..., None], rows, torch.zeros_like(rows)))
     if sh is None or sh.dim is None:
         rows = table[tokens.long()]
         return rows if rows.dtype == dtype else rows.to(dtype)

@@ -233,6 +233,49 @@ def test_flash_decode_matches_plain_version(card, case, dtype):
     assert torch.equal(again, got)
 
 
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_decode_lse_matches_plain_version(card, case, dtype):
+    """``return_lse``: the same output bits as the call without it, and each
+    row's float32 log-sum-exp within 1e-5 relative of ``attention_lse_ref``
+    (both from the same float32 logits), -1e30 where a row sees no key; one
+    more launch counted as the lse variant."""
+    b, skv, h, hkv, hd, spec, kind, n_split = case
+    q, k, v, qp, kp, valid = _decode_inputs(card, b, skv, h, hkv, hd, dtype, kind, 6)
+    plain = fkernel._flash_attention_cuda(q, k, v, qp, kp, spec, kv_valid=valid, n_split=n_split)
+    before = dict(fkernel.launches)
+    got, lse = fkernel._flash_attention_cuda(q, k, v, qp, kp, spec, kv_valid=valid,
+                                             n_split=n_split, return_lse=True)
+    assert fkernel.launches == {**before, **{
+        n: before[n] + 1 for n in ("flash_attention", "flash_attention_decode",
+                                   "flash_attention_decode_lse")}}
+    assert torch.equal(got, plain) and lse.shape == (b, 1, h) and lse.dtype == torch.float32
+    o_ref, lse_ref = fref.attention_lse_ref(q, k, v, qp, kp, spec, valid)
+    _check_decode(got, o_ref, spec, qp, kp, valid)
+    seen = fref.attention_mask(qp, kp, spec, valid).any(dim=-1)  # (B, 1)
+    rel = ((lse - lse_ref).abs() / lse_ref.abs().clamp(min=1e-30))[seen]
+    assert float(rel.max()) <= 1e-5
+    assert bool((lse[~seen] == fref.NEG).all())
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_flash_decode_lse_merges_split_slots(card, ranks):
+    """A cache's slots cut into ``ranks`` blocks, each through the kernel with
+    ``return_lse``, merged by ``transformer.merge_partials``: the kernel over
+    the whole cache within 2e-5 (float32), as a tensor-parallel decode over
+    a slot-split cache computes it."""
+    from repro_torch.models.transformer import merge_partials
+    q, k, v, qp, kp, valid = _decode_inputs(card, 4, 96, 48, 1, 128, torch.float32, "ring", 8)
+    spec = AttnSpec(window=40)
+    want = fkernel.flash_attention_cuda(q, k, v, qp, kp, spec, kv_valid=valid)
+    n = 96 // ranks
+    parts = [fkernel.flash_attention_cuda(q, k[:, i:i + n], v[:, i:i + n], qp, kp[:, i:i + n],
+                                          spec, kv_valid=valid[:, i:i + n], return_lse=True)
+             for i in range(0, 96, n)]
+    got = merge_partials(torch.stack([o for o, _ in parts]), torch.stack([l for _, l in parts]))
+    _close(got, want, 2e-5)
+
+
 @pytest.mark.parametrize("n_split", [1, 2, 7, 32, 128])
 def test_flash_decode_split_counts(card, n_split):
     """One split to one split a tile over 4096 keys, bf16 at minitron-4b's

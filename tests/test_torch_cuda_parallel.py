@@ -1,5 +1,6 @@
 """The port's distribution layer over two CUDA cards with NCCL: the train
-step, a sharded fleet and the int8 cross-pod sum of
+step, a sharded fleet, the int8 cross-pod sum and tensor-parallel serving
+(minitron-4b at full width on a model axis of 2) of
 ``tests/torch_cuda_world.py``, started by ``torchrun`` with one rank per
 card, each held against the unsharded run on one card. Marked ``cuda``; it
 skips below two cards. Imports nothing of JAX:
@@ -36,3 +37,4 @@ def test_two_cards_train_step_fleet_and_cross_pod_sum(tmp_path):
     assert result["world"] == 2 and "nccl" in result["backend"]
     assert result["train_f32"]["err_of_leaf_scale"]["params"] <= 1e-4
     assert result["fleet"]["within_rtol_1e-6"] and result["cross_pod"]["bit_equal"]
+    assert result["tp"]["err_of_scale"] <= 1e-4 and result["tp"]["argmax_agreement"] == 1.0

@@ -175,9 +175,12 @@ def test_dispatch_and_refusals():
     with pytest.raises(ValueError, match="impl"):
         tops.flash_attention(q, k, v, qp, kp, spec, impl="pallas")
     before = dict(tkernel.launches)
-    assert set(before) == {"flash_attention", "flash_attention_wgmma", "flash_attention_decode"}
+    assert set(before) == {"flash_attention", "flash_attention_wgmma", "flash_attention_decode",
+                           "flash_attention_decode_lse"}
     with pytest.raises(ValueError, match="CUDA"):
         tops.flash_attention(q, k, v, qp, kp, spec, impl="kernel")
+    with pytest.raises(ValueError, match="one query row"):  # the lse output is decode's
+        tops.flash_attention(q, k, v, qp, kp, spec, return_lse=True)
     with pytest.raises(ValueError, match="CUDA"):
         tkernel.flash_attention_cuda(q, k, v, qp, kp, spec)
     with pytest.raises(ValueError, match="CUDA"):  # the forced kernel refuses them as well
@@ -185,7 +188,7 @@ def test_dispatch_and_refusals():
     assert tkernel.launches == before
     tkernel.reset_launch_counts()
     assert tkernel.launches == {"flash_attention": 0, "flash_attention_wgmma": 0,
-                                "flash_attention_decode": 0}
+                                "flash_attention_decode": 0, "flash_attention_decode_lse": 0}
 
 
 @pytest.mark.parametrize("sq", [1, 16, 63, 64, 333, 2048])

@@ -137,9 +137,19 @@ def test_constrain_act_is_the_identity():
 
 
 def test_model_axis_above_one_raises_on_execution():
-    model = build_model(reduced(get_config("minitron-4b")), device="cpu").init(0)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        sharding.shard_params(model, {"data": 1, "model": 2})
+    """Serving executes on a model axis above 1 (tests/test_torch_tensor_parallel.py);
+    a train step there raises, naming the pending item, before it touches
+    the parameters."""
+    api = build_model(reduced(get_config("minitron-4b")), device="cpu")
+    model = api.init(0)
+    step = make_train_step(api, AdamWConfig(), total_steps=10)
+    tokens = torch.zeros((2, 4), dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": tokens.long()}
+    for sizes in ({"data": 1, "model": 2}, {"data": 2, "model": 4}):
+        with sharding.mesh_context(sizes, "tp"):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+                step(model, adamw_init(model), batch)
+    assert not any(p.requires_grad for p in model.parameters())
 
 
 # --------------------------------------------------------------------------

@@ -9,9 +9,12 @@ weights, each rank on its rows, against the unsharded step on rank 0's card
 float32, 2e-2 in bf16); a DS fleet of K = 8 at 256 x 16 over 3 slots against
 ``run()`` (decisions' records and states within rtol 1e-6); the int8
 cross-pod sum over a (pod 2, data 1, model 1) mesh against both pods' packs
-dequantised and summed in pod order, bit for bit. Rank 0 writes what it
-measured to OUT.json; any failure raises, so the rank exits non-zero.
-Imports nothing of JAX.
+dequantised and summed in pod order, bit for bit; tensor-parallel serving
+over a (1, 2) mesh: minitron-4b at full width (bf16 weights from seed 0,
+float32 compute), six teacher-forced decode steps against the unsharded
+run on rank 0's card (1e-4 of scale, greedy tokens equal), with the
+collectives a step. Rank 0 writes what it measured to OUT.json; any failure
+raises, so the rank exits non-zero. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -114,6 +117,40 @@ def cross_pod_case(dev) -> dict:
     return {"bit_equal": True}
 
 
+def tp_case(dev) -> dict:
+    cfg = dataclasses.replace(get_config("minitron-4b"), compute_dtype="float32")
+    mesh = make_host_mesh(model_parallel=2)
+    api = build_model(cfg, device=dev)
+    steps = 6
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size, (4, steps)),
+                             dtype=torch.int32, device=dev)
+
+    def decode(model):
+        cache, out = api.init_cache(4, steps + 2), []
+        for t in range(steps):
+            logits, cache = api.decode_step(model, cache, tokens[:, t:t + 1])
+            out.append(logits[:, 0].float())
+        return torch.stack(out, dim=1)
+
+    with sharding.mesh_context(mesh, "serve"):
+        sharding.reset_comm_counts()
+        got = decode(api.init(0, dtype=torch.bfloat16, mesh=mesh))
+        comm = {k: v / steps for k, v in sharding.comm_counts.items() if k.startswith("tp_")}
+    out = {"collectives_per_step": comm}
+    want_comm = {"tp_all_reduce": 2 * cfg.n_layers + 1, "tp_all_gather": 1}
+    if {k: v for k, v in comm.items() if not k.endswith("_bytes")} != want_comm:
+        raise AssertionError(f"tensor-parallel decode: collectives a step {comm}")
+    if dist.get_rank() == 0:
+        want = decode(api.init(0, dtype=torch.bfloat16))
+        err = _scale_err(got, want)
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        if err > 1e-4 or agree != 1.0:
+            raise AssertionError(f"tensor-parallel decode: {err:.3e} of scale from one card, "
+                                 f"argmax agreement {agree}")
+        out.update(err_of_scale=err, argmax_agreement=agree)
+    return out
+
+
 def main(out_path: str) -> None:
     mesh = make_host_mesh()
     dev = local_device(mesh)
@@ -123,7 +160,8 @@ def main(out_path: str) -> None:
               "train_f32": train_case(mesh, dev, {}, 1e-4),
               "train_bf16_remat": train_case(mesh, dev, {"compute_dtype": "bfloat16",
                                                          "remat": True}, 2e-2),
-              "fleet": fleet_case(mesh, dev), "cross_pod": cross_pod_case(dev)}
+              "fleet": fleet_case(mesh, dev), "cross_pod": cross_pod_case(dev),
+              "tp": tp_case(dev)}
     dist.barrier()
     if dist.get_rank() == 0:
         with open(out_path, "w") as f:

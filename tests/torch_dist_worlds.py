@@ -171,6 +171,97 @@ def moe_dispatch(payload) -> dict:
 
 
 # --------------------------------------------------------------------------
+# Tensor-parallel serving
+# --------------------------------------------------------------------------
+
+def tp_serving(cases) -> list:
+    """Each case (dict: cfg fields, the JAX package's parameter tree as
+    numpy, mesh shape, style, forward tokens (and patches), decode tokens,
+    cache length, a hidden state) on a (data, model) mesh: the port's model
+    from ``bridge.lm_params_from_numpy`` sharded by ``shard_params``; the
+    rank's rows of the forward's and every decode step's logits (whole
+    vocab), the collectives of each step, greedy tokens from
+    ``make_serve_step``, the embedding rows and the logits of the given
+    hidden state, each leaf's block and whether gathering every leaf gives
+    the JAX tree back, and the same for ``init(seed, mesh=)`` against the
+    unsharded draws."""
+    from repro_torch import bridge
+    from repro_torch.configs import ArchConfig
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import build_model, moe, ssm, transformer
+    from repro_torch.parallel import sharding
+
+    out = []
+    for case in cases:
+        mesh = init_device_mesh("cpu", case["mesh_shape"], mesh_dim_names=("data", "model"))
+        cfg = ArchConfig(**case["cfg"])
+        api = build_model(cfg, device="cpu")
+        model = bridge.lm_params_from_numpy(cfg, case["tree"], "cpu")
+        flat = {k: np.asarray(v) for k, v in bridge._flat_names(case["tree"]).items()}
+        rows = lambda a: sharding.local_rows(torch.as_tensor(a), mesh)  # noqa: E731
+        res = {"comm": []}
+        with sharding.mesh_context(mesh, case["style"]), torch.no_grad():
+            sharding.shard_params(model, mesh)
+            named = dict(model.named_parameters())
+            res["blocks_are_local"] = all(
+                np.array_equal(p.numpy(), np.asarray(sharding.sharding_of(p).local(flat[k])))
+                for k, p in named.items())
+            res["gather_is_identity"] = {
+                k: bool(np.array_equal(sharding.sharding_of(p).gather(p).numpy(), flat[k]))
+                for k, p in named.items()}
+            res["tp_dims"] = {k: sharding.sharding_of(p).tp_dim for k, p in named.items()}
+            drawn = api.init(3, mesh=mesh)
+            res["init_blocks"] = {k: sharding.sharding_of(p).gather(p).numpy()
+                                  for k, p in drawn.named_parameters()}
+            del drawn
+            batch = {"tokens": rows(case["tokens"])}
+            if "patches" in case:
+                batch["patches"] = rows(case["patches"])
+            with moe.recording_routing() as log:
+                res["forward"] = api.forward(model, batch).numpy()
+            res["routing"] = [(i.numpy(), kept.numpy()) for i, kept in log]
+            cache = api.init_cache(case["tokens"].shape[0], case["max_len"])
+            res["cache_shapes"] = {k: tuple(v.shape) for k, v in cache.items()
+                                   if isinstance(v, torch.Tensor)}
+            res["cache_slots"] = {k: v for k, v in cache.items() if k.startswith("slots")}
+            steps = []
+            for t in range(case["decode"].shape[1]):
+                sharding.reset_comm_counts()
+                logits, cache = api.decode_step(model, cache, rows(case["decode"][:, t:t + 1]))
+                res["comm"].append({k: v for k, v in sharding.comm_counts.items()
+                                    if not k.endswith("_bytes")})
+                steps.append(logits.numpy())
+            res["decode"] = np.stack(steps)
+            step = make_serve_step(api)
+            cache = api.init_cache(case["tokens"].shape[0], case["max_len"])
+            tok, greedy = rows(case["decode"][:, :1]), []
+            for _ in range(case["decode"].shape[1]):
+                tok, cache = step(model, cache, tok)
+                greedy.append(tok.numpy())
+            res["greedy"] = np.concatenate(greedy, axis=1)
+            res["embed_rows"] = sharding.embed_rows(model.embed, rows(case["tokens"]),
+                                                    torch.float32).numpy()
+            hidden = rows(case["hidden"])
+            res["head_logits"] = (ssm._logits(cfg, model, hidden) if cfg.family == "ssm"
+                                  else transformer.logits_of(cfg, model, hidden)).numpy()
+        out.append(res)
+    return out
+
+
+def serve_main(argvs) -> list:
+    """``serve.main(argv)`` of each argv on this rank, its standard output
+    captured."""
+    from repro_torch.launch import serve
+    out = []
+    for argv in argvs:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            summary = serve.main(argv)
+        out.append({"summary": summary, "stdout": buf.getvalue()})
+    return out
+
+
+# --------------------------------------------------------------------------
 # Fleets
 # --------------------------------------------------------------------------
 
@@ -281,4 +372,5 @@ def several(tasks) -> list:
 
 
 TASKS = {"int8_sum": int8_sum, "train_steps": train_steps, "moe_dispatch": moe_dispatch,
-         "fleets": fleets, "train_main": train_main, "several": several}
+         "fleets": fleets, "train_main": train_main, "several": several,
+         "tp_serving": tp_serving, "serve_main": serve_main}
