@@ -73,9 +73,9 @@ Phases, each fatal on failure:
      assignments first, equal on both sides;
  10. drive the fleet path (``FleetEngine.from_configs`` / ``from_jobs`` ->
      ``run``) at 1024 x 32 with per-slice rates, costs and budgets: DS and
-     L-DS fleets of K = 1 and K = 8 slices over 4 slots (ms per fleet slot
+     L-DS fleets of K = 1 and K = 8 slices over 3 slots (ms per fleet slot
      and per slice-slot, device busy and launches per fleet slot, peak
-     memory, matcher launches per run equal to 4 x one per policy group
+     memory, matcher launches per run equal to 3 x one per policy group
      at both K), each K = 8 slice against its own single-slice run (rtol
      1e-6, first-slot decisions equal), one K = 8 L-DS slot on the card
      against the CPU, a ragged fleet (1024 x 32, 768 x 24, 512 x 16,
@@ -129,7 +129,21 @@ Phases, each fatal on failure:
      launches and collectives a step; each held in float32 compute within
      1e-4 of scale of the unsharded run on the same card (greedy tokens
      equal) and in bf16 within 0.15 (argmax agreement reported); ms per
-     decode step beside the unsharded run's.
+     decode step beside the unsharded run's;
+ 15. tensor parallelism of the hybrid and encoder-decoder families and the
+     train step on a model axis of 2, with phase 14's two gloo ranks: (a)
+     ``serve.main --model-parallel 2`` of zamba2-2.7b at 12 of 54 layers
+     (Mamba-2 heads on ``model``, the gated norm's all-reduce, the shared
+     block twice a step) and whisper-base whole (its cross-attention cache
+     by kv heads), held as phase 14 holds its cells; (b) one train step
+     through ``make_train_step`` under ``mesh_context(mesh, "tp")`` of
+     minitron-4b at 4 of 32 layers, zamba2-2.7b at 6 and whisper-base, B 4
+     x 128: in float32 each rank holds its blocks against the unsharded
+     step on the card (loss 1e-5 relative; grad norm, moments and updated
+     parameters 1e-4 of each leaf's scale), then 3 bf16 steps: ms a step,
+     collectives of the forward and of the rest by kind, exact attention
+     launches a step (the wgmma kernel through ``ops.KernelAttention`` at
+     minitron-4b's 16 / 4 local heads), peak memory a rank.
 Phase 6 also holds the decode kernel's log-sum-exp output against its plain
 version (granite-20b's decode on one of phase 14's ranks, a row that sees
 no key, a rank's half of a 32,768-slot cache).
@@ -1602,8 +1616,9 @@ def phase_families(torch, serve, steps, models, configs, kernels) -> dict:
 
 FLEET_K = 8
 # Slots of the homogeneous fleets, few enough to keep the whole script well
-# inside its time limit; the ragged and mixed-policy ones run 4.
-FLEET_SLOTS = 4
+# inside its time limit (3 since phase 15 joined it; 4 before); the ragged
+# and mixed-policy ones run 4.
+FLEET_SLOTS = 3
 # Matcher launches per fleet slot: one per policy group, whatever K is.
 FLEET_LAUNCHES = {"ds": {"greedy_collection": 1, "greedy_assignment": 0, "greedy_pairing": 1},
                   "l-ds": {"greedy_collection": 1, "greedy_assignment": 1, "greedy_pairing": 2}}
@@ -2555,12 +2570,20 @@ def tp_tokens(torch, cfg, device):
                            dtype=torch.int32, device=device)
 
 
+def tp_frames(torch, cfg, device):
+    """``serve.main``'s stub frames of an encoder-decoder (seed 1)."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    return torch.randn((TP_BATCH, cfg.enc_ctx, cfg.d_model), generator=gen, device=device)
+
+
 def tp_checks(torch, configs, models, sharding, arch, layers, device, mesh=None) -> dict:
     """Teacher-forced decode logits (B, steps, V) on the host, in float32
     compute and in bf16, of the bf16 weights drawn from seed 0 (the serve
     run's), this rank's block of them under ``mesh``; an MoE's expert ids
-    of every step and layer (steps, L, B, k) beside them (``routing``)."""
-    from repro_torch.models import moe
+    of every step and layer (steps, L, B, k) beside them (``routing``); an
+    encoder-decoder's cross-attention cache filled from ``serve.main``'s
+    frames first."""
+    from repro_torch.models import encdec, moe
     out = {}
     model = None
     for cdt in ("float32", "bfloat16"):
@@ -2572,6 +2595,10 @@ def tp_checks(torch, configs, models, sharding, arch, layers, device, mesh=None)
         if mesh is not None:
             tokens = sharding.local_rows(tokens, mesh)
         cache = api.init_cache(TP_BATCH, TP_STEPS + 2)
+        if cfg.family == "encdec":  # serve.main's frames, each rank's rows
+            frames = tp_frames(torch, cfg, device)
+            frames = sharding.local_rows(frames, mesh) if mesh is not None else frames
+            cache = encdec.prefill_cross(cfg, model, frames, cache)
         steps, routes = [], []
         for t in range(TP_STEPS):
             with moe.recording_routing() as log:
@@ -2600,12 +2627,12 @@ def tp_agreeing_rows(torch, got: dict, want: dict, cdt: str):
     return same.t().int().cumprod(dim=1).bool()
 
 
-def tp_worker(rank: int, world: int, work: str, cells, device: str) -> None:
-    """One rank of phase 14 (a spawned process): a gloo group through a
-    FileStore under ``work``; per cell ``serve.main`` at ``--model-parallel
-    world`` with every launch count set to 0 just before it and read just
-    after, then ``tp_checks`` on this rank's blocks; the results go to
-    ``work/rank{rank}.pt``."""
+def tp_worker(rank: int, world: int, work: str, cells, device: str, train_cells=()) -> None:
+    """One rank of phases 14 and 15 (a spawned process): a gloo group
+    through a FileStore under ``work``; per cell ``serve.main`` at
+    ``--model-parallel world`` with every launch count set to 0 just before
+    it and read just after, then ``tp_checks`` on this rank's blocks; per
+    train cell ``tp_train_cell``; the results go to ``work/rank{rank}.pt``."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(SRC))
@@ -2635,6 +2662,12 @@ def tp_worker(rank: int, world: int, work: str, cells, device: str) -> None:
                 logits = tp_checks(torch, configs, models, sharding, arch, layers, device, mesh)
             out[arch] = {"summary": summary, "launches": launches, "serve_peak_gib": peak,
                          "logits": logits}
+        for arch, layers in train_cells:
+            mesh = make_host_mesh(model_parallel=world, device=device)
+            out[f"train {arch}"] = r = tp_train_cell(torch, models, configs, sharding, kernels,
+                                                     arch, layers, device, mesh)
+            print(f"phase 15 rank {rank} train {arch}: stages (s) {json.dumps(r['stage_s'])}",
+                  flush=True)
         torch.save(out, Path(work) / f"rank{rank}.pt")
         dist.barrier()
     finally:
@@ -2643,23 +2676,219 @@ def tp_worker(rank: int, world: int, work: str, cells, device: str) -> None:
 
 def tp_expected(configs, arch: str, layers: int, steps: int, world: int):
     """(launches of a serve run of ``steps`` decode steps, collectives of a
-    step) on a model axis of ``world``: one attention (decode kernel) or
-    scan launch a layer a step, the lse variant where the kv heads do not
-    divide over model; 2 all-reduces a layer, 1 for the embedding rows, 1
-    logits gather, and a q gather and an lse merge a layer under "seq"."""
+    step) on a model axis of ``world``: one attention (decode kernel) a
+    decode attention a step -- a layer's, zamba2's shared block once a group
+    of layers, whisper's self- and cross-attention a decoder layer, which
+    first encodes its frames (float32: the SIMT kernel a layer) -- the lse
+    variant where the kv heads do not divide over model, or one scan launch
+    a layer a step; all-reduces a step: 2 a layer (wo / w_down, the MoE
+    combine, x_proj / out_proj, Mamba-2's gated norm / out_proj), 2 an
+    application of the shared block, 3 a whisper decoder layer; 1 for the
+    embedding rows and 1 logits gather where the vocabulary divides over
+    model; a q gather and an lse merge an attention under "seq"."""
     cfg = tp_config(configs, arch, layers)
-    n = cfg.n_layers * steps
+    vocab = int(cfg.vocab_size % world == 0)
     if cfg.family == "ssm":
-        return {"mamba1_scan": n}, {"tp_all_reduce": 2 * cfg.n_layers + 1, "tp_all_gather": 1}
+        return ({"mamba1_scan": cfg.n_layers * steps},
+                {"tp_all_reduce": 2 * cfg.n_layers + vocab, "tp_all_gather": vocab})
     seq = cfg.n_kv_heads % world != 0
-    launches = {"flash_attention": n, "flash_attention_decode": n}
+    attns, reduces, extra = cfg.n_layers, 2 * cfg.n_layers, 0
+    if cfg.family == "hybrid":
+        attns = cfg.n_layers // cfg.hybrid_attn_every
+        reduces = 2 * cfg.n_layers + 2 * attns
+    elif cfg.family == "encdec":
+        attns, reduces, extra = 2 * cfg.n_layers, 3 * cfg.n_layers, cfg.n_enc_layers
+    n = attns * steps
+    launches = {"flash_attention": n + extra, "flash_attention_decode": n}
     if seq:
         launches["flash_attention_decode_lse"] = n
-    return launches, {"tp_all_reduce": 2 * cfg.n_layers + 1,
-                      "tp_all_gather": 1 + (2 * cfg.n_layers if seq else 0)}
+    comm = {"tp_all_reduce": reduces + vocab, "tp_all_gather": vocab + (2 * attns if seq else 0)}
+    return launches, {k: v for k, v in comm.items() if v}
 
 
-def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cuda:0") -> dict:
+# --------------------------------------------------------------------------
+# Phase 15: the hybrid and encoder-decoder families served on a model axis of
+# 2, and one train step there for three families
+# --------------------------------------------------------------------------
+
+# zamba2-2.7b at 12 of its 54 layers (two groups of 6: the shared block
+# twice a step) and whisper-base whole, served as phase 14 serves; both
+# hold their kv heads on model at 2 (32 and 8 kv heads).
+TP15_CELLS = (("zamba2-2.7b", 12), ("whisper-base", 0))
+# Train cells at full width: minitron-4b at 4 of 32 layers (16 / 4 local q
+# / kv heads: the wgmma kernel in bf16), zamba2-2.7b at 6 (one group: the
+# SIMT kernel at hd 80) and whisper-base whole; B 4 x 128 each.
+TP15_TRAIN_CELLS = (("minitron-4b", 4), ("zamba2-2.7b", 6), ("whisper-base", 0))
+TP15_BATCH, TP15_SEQ, TP15_BF16_STEPS = 4, 128, 3
+# 1e3 x AdamW's eps: a gradient below it sets a first update lr g / (|g| +
+# eps) that moves by 1e-3 of its ulps' error and more (``hold_train_blocks``).
+TP15_GRAD_FLOOR = 1e-5
+# Attention launches of one bf16 train step (remat: forward and recompute):
+# minitron-4b's 4 layers on the wgmma kernel; zamba2-2.7b's shared block
+# once; whisper-base's float32 encoder (6) and cross-attentions (6, float32
+# keys) on the SIMT kernel, its bf16 decoder self-attention (6) on wgmma.
+TP15_TRAIN_LAUNCHES = {"minitron-4b": attn_counts(wgmma=8), "zamba2-2.7b": attn_counts(simt=2),
+                       "whisper-base": attn_counts(simt=24, wgmma=12)}
+
+
+def tp15_batch(torch, cfg, device) -> dict:
+    """A global train batch (seed 9): next-token labels, one masked,
+    per-sample weights, stub frames for an encoder-decoder."""
+    rng = np.random.default_rng(9)
+    tokens = rng.integers(0, cfg.vocab_size, (TP15_BATCH, TP15_SEQ))
+    labels = np.roll(tokens, -1, axis=1)
+    labels[:, -1] = -1
+    out = {"tokens": torch.as_tensor(tokens, dtype=torch.int32, device=device),
+           "labels": torch.as_tensor(labels, device=device),
+           "weights": torch.tensor([1.3, 0.0, 0.7, 2.0], device=device)}
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=device).manual_seed(2)
+        out["frames"] = torch.randn((TP15_BATCH, cfg.enc_ctx, cfg.d_model), generator=gen,
+                                    device=device)
+    return out
+
+
+def hold_train_blocks(torch, models, api, batch, model, opt, met, shardings,
+                      tol: float = TP_F32_TOL) -> dict:
+    """The unsharded train step of ``api`` on the global ``batch`` (weights
+    drawn from seed 0, as the sharded run's), and this rank's blocks of the
+    sharded step held against it by the port's parity rule: the loss within
+    1e-5 relative, the grad norm, every leaf's first moment (the clipped
+    gradient) and sqrt of its second within ``tol`` of the whole leaf's
+    scale; the updated parameters within ``tol`` of scale where the
+    gradient is above ``tol`` of its largest and above ``TP15_GRAD_FLOOR``,
+    and an update's sign flipped only below that, on at most 2 % of the
+    block.
+    Fails on a miss; returns the worst errors."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    ref = api.init(0)
+    p0 = {k: shardings[k].local(p).clone() for k, p in ref.named_parameters()}
+    ref, ref_opt, ref_met = make_train_step(api, AdamWConfig(), total_steps=10)(
+        ref, adamw_init(ref), batch)
+    worst = {"loss_rel": abs(float(met["loss"]) - float(ref_met["loss"])) / abs(
+        float(ref_met["loss"])), "grad_norm_rel": abs(float(met["grad_norm"]) - float(
+            ref_met["grad_norm"])) / float(ref_met["grad_norm"]), "m": 0.0, "v_root": 0.0,
+        "params": 0.0, "flip_share": 0.0}
+    got = dict(model.named_parameters())
+    for k, want in ref.named_parameters():
+        sh, want = shardings[k], want.detach()
+        m_full, v_root = ref_opt.m[k], ref_opt.v[k].sqrt()
+        worst["m"] = max(worst["m"], float((opt.m[k] - sh.local(m_full)).abs().max())
+                         / float(m_full.abs().max()))
+        worst["v_root"] = max(worst["v_root"], float(
+            (opt.v[k].sqrt() - sh.local(v_root)).abs().max()) / float(v_root.abs().max()))
+        # The first update is lr g / (|g| + eps): where |g| is within a few
+        # hundred eps of eps it magnifies a gradient's last ulps (a zero-init
+        # norm's parameters are that update), so the parameters are held
+        # where |g| is above tol of its largest and above 1e3 eps.
+        grad = sh.local(m_full).abs() / (1.0 - AdamWConfig.b1)
+        above = (grad > tol * m_full.abs().max() / (1.0 - AdamWConfig.b1)) & (
+            grad > TP15_GRAD_FLOOR)
+        p, w = got[k].detach(), sh.local(want)
+        err = (p - w).abs()[above]
+        if err.numel() and float(err.max()) / float(want.abs().max()) > worst["params"]:
+            worst["params"] = float(err.max()) / float(want.abs().max())
+            worst["params_leaf"] = k
+        flips = torch.sign(p - p0[k]) != torch.sign(w - p0[k])
+        if bool((flips & above).any()):
+            fail(f"train step: {k}: an update above {tol} of the gradient's scale flipped sign")
+        worst["flip_share"] = max(worst["flip_share"], float(flips.float().mean()))
+    if worst["loss_rel"] > 1e-5 or worst["flip_share"] > 0.02 or max(
+            worst[k] for k in ("grad_norm_rel", "m", "v_root", "params")) > tol:
+        fail(f"train step against the unsharded one on the card: {worst} (limit {tol})")
+    del ref, ref_opt, p0
+    torch.cuda.empty_cache()
+    return worst
+
+
+def tp_train_cell(torch, models, configs, sharding, kernels, arch: str, layers: int, device,
+                  mesh) -> dict:
+    """One rank's train cell of phase 15 under ``mesh_context(mesh, "tp")``:
+    one float32 step of the sharded model (weights from seed 0 drawn as
+    blocks), then each rank in turn runs the unsharded step on the card and
+    holds its blocks (``hold_train_blocks``); then ``TP15_BF16_STEPS`` bf16
+    steps of a fresh sharded model: ms a step, collectives of the forward
+    (through the loss) and of the rest of each step by kind, exact
+    attention launches a step, peak memory."""
+    import torch.distributed as dist
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    base = tp_config(configs, arch, layers)
+    batch = tp15_batch(torch, base, device)
+    out = {"n_layers": base.n_layers}
+    t0 = time.perf_counter()
+
+    def mark(what: str) -> None:
+        out.setdefault("stage_s", {})[what] = time.perf_counter() - t0
+    api = models.build_model(dataclasses.replace(base, compute_dtype="float32"), device=device)
+    with sharding.mesh_context(mesh, "tp"):
+        model = api.init(0, mesh=mesh)
+        opt = adamw_init(model)
+        local = {k: sharding.local_rows(v, mesh) for k, v in batch.items()}
+        reset_counts(*kernels)
+        mark("f32 init")
+        model, opt, met = make_train_step(api, AdamWConfig(), total_steps=10)(model, opt, local)
+        out["f32_launches"] = all_counts(*kernels)
+        float(met["loss"])
+        mark("f32 step")
+    shardings = {k: sharding.sharding_of(p) for k, p in model.named_parameters()}
+    for r in range(dist.get_world_size()):
+        dist.barrier()
+        if r == dist.get_rank():
+            out["f32_held"] = hold_train_blocks(torch, models, api, batch, model, opt, met,
+                                                shardings)
+            mark("f32 held")
+    dist.barrier()
+    out.update(f32_loss=float(met["loss"]), f32_grad_norm=float(met["grad_norm"]))
+    del model, opt, met
+    torch.cuda.empty_cache()
+
+    api = models.build_model(base, device=device)
+    forward = {}
+
+    def loss(model, batch, _loss=api.loss):
+        res = _loss(model, batch)
+        forward.clear()
+        forward.update(sharding.comm_counts)
+        return res
+
+    api = dataclasses.replace(api, loss=loss)
+    step = make_train_step(api, AdamWConfig(), total_steps=10)
+    ms, comm, launches, losses = [], [], [], []
+    with sharding.mesh_context(mesh, "tp"):
+        model = api.init(0, mesh=mesh)
+        opt = adamw_init(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(TP15_BF16_STEPS):
+            sharding.reset_comm_counts()
+            reset_counts(*kernels)
+            t = time.perf_counter()
+            model, opt, met = step(model, opt, local)
+            losses.append(float(met["loss"]))  # waits for the step
+            ms.append((time.perf_counter() - t) * 1e3)
+            launches.append(all_counts(*kernels))
+            mark(f"bf16 step {len(ms)}")
+            total = {k: v for k, v in sharding.comm_counts.items() if not k.endswith("_bytes")}
+            fwd = {k: v for k, v in forward.items() if not k.endswith("_bytes")}
+            comm.append({"forward": fwd, "rest": {k: v - fwd.get(k, 0) for k, v in total.items()
+                                                  if v - fwd.get(k, 0)}})
+    want = TP15_TRAIN_LAUNCHES[arch]
+    for got in launches:
+        if got != {k: want.get(k, 0) for k in got}:
+            fail(f"phase 15 train {arch}: bf16 step launches {got}, expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 15 train {arch}: bf16 losses {losses}")
+    out.update(bf16_ms=ms, bf16_losses=losses, bf16_comm=comm[-1], bf16_launches=launches[-1],
+               bf16_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cuda:0",
+             train_cells=(), phase: int = 14) -> dict:
     """Phase 14: a world of two gloo ranks on the one card (NCCL refuses two
     ranks on one device), spawned after the main process frees its cached
     memory; each serves every cell through ``serve.main`` at model = 2 and
@@ -2682,17 +2911,17 @@ def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cud
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     t0 = time.perf_counter()
-    ctx = mp.start_processes(tp_worker, args=(TP_WORLD, str(work), cells, device),
+    ctx = mp.start_processes(tp_worker, args=(TP_WORLD, str(work), cells, device, train_cells),
                              nprocs=TP_WORLD, join=False, start_method="spawn")
     try:
         deadline = time.monotonic() + TP_TIMEOUT_S
         while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
             if time.monotonic() >= deadline:
-                fail(f"phase 14: the {TP_WORLD} ranks did not finish in {TP_TIMEOUT_S} s")
+                fail(f"phase {phase}: the {TP_WORLD} ranks did not finish in {TP_TIMEOUT_S} s")
     except mp.ProcessRaisedException as exc:
-        fail(f"phase 14: a rank failed:\n{exc}")
+        fail(f"phase {phase}: a rank failed:\n{exc}")
     except mp.ProcessExitedException as exc:
-        fail(f"phase 14: a rank exited: {exc}")
+        fail(f"phase {phase}: a rank exited: {exc}")
     finally:
         for proc in ctx.processes:
             if proc.is_alive():
@@ -2701,7 +2930,8 @@ def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cud
     ranks = [torch.load(work / f"rank{r}.pt") for r in range(TP_WORLD)]
     shutil.rmtree(work, ignore_errors=True)
     out = {"world": TP_WORLD, "backend": ranks[0]["backend"], "device": device,
-           "world_s": time.perf_counter() - t0, "cells": {}}
+           "world_s": time.perf_counter() - t0, "cells": {},
+           "train": {arch: [r[f"train {arch}"] for r in ranks] for arch, _ in train_cells}}
     steps = TP_PROMPT + TP_GEN
     for arch, layers in cells:
         r0 = ranks[0][arch]
@@ -2709,16 +2939,16 @@ def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cud
         for rank, r in enumerate(ranks):
             got = r[arch]["launches"]
             if got != {k: want_launches.get(k, 0) for k in got}:
-                fail(f"phase 14 {arch} rank {rank}: serve launches {got}, expected "
+                fail(f"phase {phase} {arch} rank {rank}: serve launches {got}, expected "
                      f"{want_launches}")
             comm = {k: v for k, v in r[arch]["summary"]["collectives_per_step"].items()
                     if k.startswith("tp_")}
             if comm != want_comm:
-                fail(f"phase 14 {arch} rank {rank}: collectives a step {comm}, expected "
+                fail(f"phase {phase} {arch} rank {rank}: collectives a step {comm}, expected "
                      f"{want_comm}")
             if r[arch]["summary"]["sample_tokens"] != r0["summary"]["sample_tokens"] or any(
                     not torch.equal(r[arch]["logits"][c], r0["logits"][c]) for c in r0["logits"]):
-                fail(f"phase 14 {arch}: rank {rank}'s gathered logits differ from rank 0's")
+                fail(f"phase {phase} {arch}: rank {rank}'s gathered logits differ from rank 0's")
         # The same cell unsharded on the same card.
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2733,11 +2963,11 @@ def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cud
         held = {c: rel_err(r0["logits"][c][rows[c]], ref[c][rows[c]])[1] for c in cdts}
         if not bool(rows["float32"].all()) or gaps["float32"] > TP_F32_TOL or \
                 agree["float32"] != 1.0:
-            fail(f"phase 14 {arch}: float32 logits {gaps['float32']:.3e} of scale from the "
+            fail(f"phase {phase} {arch}: float32 logits {gaps['float32']:.3e} of scale from the "
                  f"unsharded run (limit {TP_F32_TOL:.0e}), argmax agreement "
                  f"{agree['float32']:.4f}, routing equal {bool(rows['float32'].all())}")
         if held["bfloat16"] > FAMILY_BF16_TOL:
-            fail(f"phase 14 {arch}: bf16 logits {held['bfloat16']:.3e} of scale from the "
+            fail(f"phase {phase} {arch}: bf16 logits {held['bfloat16']:.3e} of scale from the "
                  f"unsharded run (limit {FAMILY_BF16_TOL})")
         cfg = tp_config(configs, arch, layers)
         s = r0["summary"]
@@ -3038,6 +3268,32 @@ def main(argv=None) -> int:
               f"{r['unsharded_serve_peak_gib']:.3f}), launches {json.dumps(r['launches'])}")
     print(f"phase 14 took {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    tp15 = phase_tp(torch, serve, models, configs, all_kernels, cells=TP15_CELLS,
+                    train_cells=TP15_TRAIN_CELLS, phase=15)
+    print(f"phase 15 (a) hybrid and encoder-decoder serving: {tp15['world']} {tp15['backend']} "
+          f"ranks on {tp15['device']}, mesh data 1 x model {tp15['world']} [{smi}]")
+    for arch, r in tp15["cells"].items():
+        print(f"phase 15 (a) {arch} ({r['n_layers']} layers, {r['layout']}): "
+              f"{r['ms_per_decode_step']:.3f} ms per decode step (unsharded "
+              f"{r['unsharded_ms_per_decode_step']:.3f}), collectives per step "
+              f"{json.dumps(r['collectives_per_step'])}, float32 {r['f32_err_of_scale']:.3e} / "
+              f"bf16 {r['bf16_err_of_scale']:.3e} of scale from unsharded, argmax agreement "
+              f"{json.dumps(r['argmax_agreement'])}, serve peak GiB per rank "
+              f"{json.dumps([round(x, 3) for x in r['serve_peak_gib_per_rank']])} (unsharded "
+              f"{r['unsharded_serve_peak_gib']:.3f}), launches {json.dumps(r['launches'])}")
+    for arch, ranks in tp15["train"].items():
+        r = ranks[0]
+        print(f"phase 15 (b) train {arch} ({r['n_layers']} layers, B {TP15_BATCH} x {TP15_SEQ}, "
+              f"tp style): float32 step held on each rank against the unsharded step "
+              f"{json.dumps([x['f32_held'] for x in ranks])}, launches "
+              f"{json.dumps(r['f32_launches'])}; bf16 ms per step "
+              f"{json.dumps([round(x, 3) for x in r['bf16_ms']])}, losses "
+              f"{json.dumps(r['bf16_losses'])}, collectives of the last step "
+              f"{json.dumps(r['bf16_comm'])}, launches {json.dumps(r['bf16_launches'])}, peak "
+              f"GiB per rank {json.dumps([round(x['bf16_peak_gib'], 3) for x in ranks])} [{smi}]")
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -3099,6 +3355,8 @@ def main(argv=None) -> int:
         "launches_serve": simt_count(mini["serve_launches"]),
         "launches_families": family_launches(simt_count),
         "launches_per_decode_step": simt_count(mini["step_launches"]),
+        "launches_tp15_train_step": {arch: simt_count(ranks[0]["bf16_launches"])
+                                     for arch, ranks in tp15["train"].items()},
         "max_abs_err": fa_err["simt"],
         "ms": fwd["device_ms"], "device_ms": fwd["device_ms"], "event_ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -3129,6 +3387,8 @@ def main(argv=None) -> int:
         "replaces": fa_replaces, "launches": mini["serve_launches"]["flash_attention_decode"],
         "launches_families": family_launches(lambda c: c["flash_attention_decode"]),
         "launches_per_decode_step": mini["step_launches"]["flash_attention_decode"],
+        "launches_tp15": {arch: r["launches"]["flash_attention_decode"]
+                          for arch, r in tp15["cells"].items()},
         "max_abs_err": fa_err["decode"], "ms": dec["device_ms"], "event_ms": dec["ms"],
         "simt_ms": dec["simt_device_ms"], "simt_event_ms": dec["simt_ms"],
         "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
@@ -3160,7 +3420,9 @@ def main(argv=None) -> int:
             "bound_ms", "bound_by", "backward_bound_ms", "backward_bound_by", "library_ms",
             "library_forward_backward_ms", "forward_err_of_scale", "grads_bit_equal")},
             "launches": full["launches"]["flash_attention_wgmma"],
-            "launches_per_step": full["wgmma_per_step"]},
+            "launches_per_step": full["wgmma_per_step"],
+            "launches_tp15_step": {arch: ranks[0]["bf16_launches"].get(
+                "flash_attention_wgmma", 0) for arch, ranks in tp15["train"].items()}},
     })
     lse = lse_res["lse_seq_bf16"]
     line.append({
@@ -3209,7 +3471,7 @@ def main(argv=None) -> int:
             "lm_kernels": lm_kres,
             "serve": serve_res, "lm_parity": lm_parity, "fleet": fleet, "train": trn,
             "families": fam, "distributed": dst, "decode_lse": lse_res,
-            "tensor_parallel": tp},
+            "tensor_parallel": tp, "tensor_parallel_15": tp15},
             indent=1))
     import torch.distributed as dist
     dist.destroy_process_group()

@@ -45,13 +45,13 @@ IMPLS = ("auto", "kernel", "chunked", "ref")
 
 
 def _chunk_sizes(sq: int, skv: int, q_chunk: int, kv_chunk: int) -> tuple[int, int]:
-    qc = min(q_chunk, sq)
-    while sq % qc:
-        qc //= 2
-    kc = min(kv_chunk, skv)
-    while skv % kc:
-        kc //= 2
-    return max(qc, 1), max(kc, 1)
+    """The largest chunks of at most ``q_chunk`` / ``kv_chunk`` that divide
+    ``sq`` / ``skv``. (The JAX package halves the cap until it divides, which
+    its compiled scan runs at any trip count; run eagerly, whisper's 1,500
+    frames would halve to chunks of 4, a 375 x 375 loop of small calls.)"""
+    def largest(n: int, cap: int) -> int:
+        return next(c for c in range(min(cap, n), 0, -1) if n % c == 0)
+    return largest(sq, q_chunk), largest(skv, kv_chunk)
 
 
 def attention_chunked(q, k, v, q_pos, kv_pos, spec: AttnSpec, kv_valid=None,

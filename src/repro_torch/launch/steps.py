@@ -19,8 +19,8 @@ from ..models import ModelApi
 from ..models.layers import loss_denominator
 from ..optim import AdamWConfig, AdamWState, cosine_schedule
 from ..optim.adamw import adamw_update_
-from ..parallel.sharding import (TP_PENDING, all_reduce_, batch_groups, current_mesh,
-                                 model_axis, sharding_of)
+from ..parallel.sharding import (TP_STYLES, all_reduce_, batch_groups, current_mesh,
+                                 current_style, model_axis, sharding_of, tp_style_pending)
 
 
 def make_train_step(model: ModelApi, opt_cfg: AdamWConfig, total_steps: int = 10_000,
@@ -42,15 +42,21 @@ def make_train_step(model: ModelApi, opt_cfg: AdamWConfig, total_steps: int = 10
     forward and divides each rank's sum(w * nll); a sharded leaf's gradient
     is reduce-scattered over ``data`` by its gather's backward and summed
     over the other batch axes, a replicated leaf's is summed over every
-    batch axis; the reported loss is the global one. A mesh whose ``model``
-    axis is above 1 raises (``sharding.TP_PENDING``)."""
+    batch axis; the reported loss is the global one. On a ``model`` axis
+    above 1 (the ``tp`` and ``serve`` styles) each ``model`` rank computes
+    the same loss from the same rows: a leaf blocked on ``model`` gets its
+    block's gradient, and a replicated one its whole gradient, equal on
+    every ``model`` rank, by the f / g pair in the forward
+    (``parallel.sharding``), so nothing is reduced over ``model``; the
+    cross-entropy runs over the vocab blocks. The ``tp_sp`` and ``fsdp``
+    styles there raise (``sharding.tp_style_pending``)."""
     if warmup_steps < 0:
         warmup_steps = max(min(100, total_steps // 10), 1)
 
     def train_step(params, opt_state: AdamWState, batch):
         mesh = current_mesh()
-        if model_axis(mesh) > 1:
-            raise NotImplementedError(TP_PENDING)
+        if model_axis(mesh) > 1 and current_style() not in TP_STYLES:
+            raise NotImplementedError(tp_style_pending(current_style()))
         params.requires_grad_(True)
         named = dict(params.named_parameters())
         if mesh is not None:

@@ -28,7 +28,7 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..parallel.sharding import empty_blocks
 from . import encdec, hybrid, ssm, transformer, vlm
-from .layers import weighted_cross_entropy
+from .layers import vocab_parallel, weighted_cross_entropy
 
 # family -> (module with init_params / forward / init_cache / decode_step, model class)
 _FAMILIES = {
@@ -72,18 +72,23 @@ def new_model(cfg: ArchConfig, device, dtype: Optional[torch.dtype] = None) -> n
     return _family(cfg)[1](cfg, device=device, dtype=dtype)
 
 
-def _lm_loss(fwd):
+def _lm_loss(cfg: ArchConfig, fwd):
     """(model, batch) -> (weighted mean CE, {"ce", "tokens"}): the
     counterpart of the JAX package's ``_lm_loss``; the VLM's image prefix
     positions get label -1. ``batch["denom"]``, where set, is the global
-    denominator of a data-parallel rank's rows (``launch/steps.py``)."""
+    denominator of a data-parallel rank's rows (``launch/steps.py``). A
+    vocab-sharded head's logits stay each rank's block (the vocab-parallel
+    cross-entropy)."""
     def loss_fn(model, batch):
-        logits, labels = fwd(model, batch), batch["labels"]
+        with vocab_parallel():
+            logits = fwd(model, batch)
+        labels = batch["labels"]
         if logits.shape[1] != labels.shape[1]:  # vlm: image prefix positions
             pad = labels.new_full((labels.shape[0], logits.shape[1] - labels.shape[1]), -1)
             labels = torch.cat([pad, labels], dim=1)
         loss, denom = weighted_cross_entropy(logits, labels, batch.get("weights"),
-                                             denom=batch.get("denom"))
+                                             denom=batch.get("denom"),
+                                             vocab_parallel=logits.shape[-1] < cfg.vocab_size)
         return loss, {"ce": loss, "tokens": denom}
     return loss_fn
 
@@ -117,7 +122,7 @@ def build_model(cfg: ArchConfig, impl: str = "auto", device=None) -> ModelApi:
         return mod.forward(cfg, model, batch["tokens"], batch[extra], impl=impl)
 
     return ModelApi(
-        cfg=cfg, device=dev, init=init, forward=forward, loss=_lm_loss(forward),
+        cfg=cfg, device=dev, init=init, forward=forward, loss=_lm_loss(cfg, forward),
         init_cache=lambda bs, max_len, **kw: mod.init_cache(cfg, bs, max_len, device=dev, **kw),
         decode_step=lambda model, cache, tokens: mod.decode_step(cfg, model, cache, tokens,
                                                                  impl=impl),

@@ -12,6 +12,17 @@ Types follow the JAX package: the float32 position table makes the encoder
 run in float32, so in ``forward`` the cross-attention keys are float32
 against a compute-type query (attention promotes, and returns the query's
 type); in decode they come from the compute-type cache.
+
+Tensor parallelism (a ``model`` axis above 1): every attention (encoder,
+decoder self- and cross-) runs on the rank's q / kv heads and every MLP on
+its ffn columns, as the transformer's blocks do (``transformer
+._project_qkv``, ``_out``, ``_ffn``). The caches follow
+``launch.specs.cache_pspecs``: ``k`` / ``v`` and ``cross_k`` / ``cross_v``
+by kv head where the kv heads divide over ``model``, else by slots (the
+decode attends over the rank's slots and merges by log-sum-exp,
+``transformer.seq_attention``); ``prefill_cross`` writes each rank's
+block. A vocabulary that does not divide (whisper's 51,865) leaves the tied
+embedding whole, so the logits are whole on every rank.
 """
 from __future__ import annotations
 
@@ -24,8 +35,10 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import AttnSpec
+from ..parallel.sharding import tp_copy, tp_rank
 from . import layers as L
-from .transformer import _out, _proj, logits_of
+from .transformer import (_ffn, _out, _own_kv, _proj, _project_qkv, cached_attention,
+                          logits_of, seq_attention)
 
 _BI = AttnSpec(causal=False)
 _CAUSAL = AttnSpec(causal=True)
@@ -95,23 +108,33 @@ def init_params(cfg: ArchConfig, model: EncDecLM, gen: torch.Generator) -> EncDe
 def _attn_apply(cfg: ArchConfig, x, p, prefix, q_pos, kv, kv_pos, spec: AttnSpec,
                 kv_valid=None, impl: str = "auto"):
     """x + attention of the block ``prefix`` over its own keys (``kv`` None;
-    rope in the causal decoder self-attention) or over ``kv`` = (k, v)."""
+    rope in the causal decoder self-attention) or over the keys and values
+    of ``kv``: a pair (k, v), or the encoder's output (B, enc, D) that the
+    block's ``cross_wk`` / ``cross_wv`` project."""
+    tp = L.local_counts(cfg, p, prefix)
     h = L.rms_norm(x, p[prefix + "norm"], cfg.norm_eps)
-    q = _proj(h, p[prefix + "wq"])
     if kv is None:
-        k, v = _proj(h, p[prefix + "wk"]), _proj(h, p[prefix + "wv"])
-        if spec.causal:
-            q = L.apply_rope(q, q_pos, cfg.rope_theta)
-            k = L.apply_rope(k, kv_pos, cfg.rope_theta)
+        q, k, v = _project_qkv(cfg, h, p, q_pos, tp, prefix, rope=spec.causal)
     else:
-        k, v = kv
-    attn = flash_attention(q, k, v, q_pos, kv_pos, spec, kv_valid=kv_valid, impl=impl)
-    return x + _out(attn, p[prefix + "wo"])
+        q = _proj(L.column_input(h, tp.heads_sharded), p[prefix + "wq"])
+        k, v = kv if isinstance(kv, tuple) else _cross_kv(kv, p, tp)
+    attn = flash_attention(q, _own_kv(tp, k), _own_kv(tp, v), q_pos, kv_pos, spec,
+                           kv_valid=kv_valid, impl=impl)
+    return x + _out(attn, p[prefix + "wo"], tp.heads_sharded)
+
+
+def _cross_kv(enc_out, p, tp: L.LocalCounts):
+    """The cross-attention keys and values of the encoder's output: a kv
+    block from the output through f, or whole kv heads beside a q block,
+    through f as products."""
+    if tp.heads_sharded and tp.kv_whole:
+        return tuple(tp_copy(_proj(enc_out, p[k])) for k in ("cross_wk", "cross_wv"))
+    e = L.column_input(enc_out, tp.heads_sharded)
+    return _proj(e, p["cross_wk"]), _proj(e, p["cross_wv"])
 
 
 def _mlp_apply(cfg: ArchConfig, x, p):
-    h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-    return x + L.matmul(L.activate(L.matmul(h, p["w_up"]), cfg.act), p["w_down"])
+    return x + _ffn(cfg, L.rms_norm(x, p["mlp_norm"], cfg.norm_eps), p, L.local_counts(cfg, p))
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -143,8 +166,7 @@ def forward(cfg: ArchConfig, model: EncDecLM, tokens: torch.Tensor, frames: torc
 
     def layer_fn(x, p, layer):
         x = _attn_apply(cfg, x, p, "", positions, None, positions, _CAUSAL, impl=impl)
-        kv = (_proj(enc_out, p["cross_wk"]), _proj(enc_out, p["cross_wv"]))
-        x = _attn_apply(cfg, x, p, "cross_", positions, kv, enc_pos, _BI, impl=impl)
+        x = _attn_apply(cfg, x, p, "cross_", positions, enc_out, enc_pos, _BI, impl=impl)
         return _mlp_apply(cfg, x, p)
 
     x = L.apply_layers(cfg, model.dec_blocks, x, layer_fn)
@@ -170,8 +192,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=Non
 def prefill_cross(cfg: ArchConfig, model: EncDecLM, frames: torch.Tensor, cache: dict,
                   impl: str = "auto") -> dict:
     """Encode the frames once and write every decoder layer's cross-attention
-    keys and values into the cache (in place; returned)."""
+    keys and values into the cache (in place; returned): this rank's kv
+    heads, or its block of the encoder's positions where the cache's slots
+    are split over ``model``."""
     enc_out = encode(cfg, model, frames, impl)
+    n = cache["cross_k"].shape[2]
+    if n < enc_out.shape[1]:  # this rank's block of positions
+        enc_out = enc_out[:, tp_rank() * n:(tp_rank() + 1) * n]
     cdt = L.compute_dtype(cfg)
     shardings = L.layer_shardings(model.dec_blocks)
     for layer, p in enumerate(L.unbind_layers(model.dec_blocks)):
@@ -191,22 +218,29 @@ def decode_step(cfg: ArchConfig, model: EncDecLM, cache: dict, tokens: torch.Ten
     b = x.shape[0]
     pos = int(cache["pos"])
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    enc_pos = _positions(b, cfg.enc_ctx, x.device)
+    n_cross = cache["cross_k"].shape[2]
+    cross_split = n_cross < cfg.enc_ctx
+    first = tp_rank() * n_cross if cross_split else 0
+    enc_pos = _positions(b, n_cross, x.device) + first
+    slots = cache.get("slots", cache["k"].shape[2])  # global; this rank's are a block
     shardings = L.layer_shardings(model.dec_blocks)
     for layer, p in enumerate(L.unbind_layers(model.dec_blocks)):
         p = L.cast_params(p, cdt, shardings)
-        kc, vc, pc = cache["k"][layer], cache["v"][layer], cache["kv_pos"][layer]
-        slot = min(pos, kc.shape[1] - 1)
+        tp = L.local_counts(cfg, p)
         h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-        q = L.apply_rope(_proj(h, p["wq"]), positions, cfg.rope_theta)
-        kc[:, slot] = L.apply_rope(_proj(h, p["wk"]), positions, cfg.rope_theta)[:, 0].to(kc.dtype)
-        vc[:, slot] = _proj(h, p["wv"])[:, 0].to(vc.dtype)
-        pc[:, slot] = pos
-        attn = flash_attention(q, kc, vc, positions, pc, _CAUSAL, kv_valid=pc >= 0, impl=impl)
-        x = x + _out(attn, p["wo"])
-        x = _attn_apply(cfg, x, p, "cross_", positions,
-                        (cache["cross_k"][layer], cache["cross_v"][layer]), enc_pos, _BI,
-                        impl=impl)
+        q, k_new, v_new = _project_qkv(cfg, h, p, positions, tp)
+        attn = cached_attention(q, k_new, v_new, cache["k"][layer], cache["v"][layer],
+                                cache["kv_pos"][layer], slots, min(pos, slots - 1), positions,
+                                _CAUSAL, tp, impl)
+        x = x + _out(attn, p["wo"], tp.heads_sharded)
+        ck, cv = cache["cross_k"][layer], cache["cross_v"][layer]
+        if cross_split:
+            ctp = L.local_counts(cfg, p, "cross_")
+            hq = _proj(L.rms_norm(x, p["cross_norm"], cfg.norm_eps), p["cross_wq"])
+            attn = seq_attention(hq, ck, cv, positions, enc_pos, _BI, ctp, impl)
+            x = x + _out(attn, p["cross_wo"], ctp.heads_sharded)
+        else:
+            x = _attn_apply(cfg, x, p, "cross_", positions, (ck, cv), enc_pos, _BI, impl=impl)
         x = _mlp_apply(cfg, x, p)
     cache["pos"] = pos + 1
     return logits_of(cfg, model, x), cache

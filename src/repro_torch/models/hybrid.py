@@ -9,6 +9,14 @@ the hidden stream only (no concatenation with the initial embedding, no
 per-application LoRA deltas). ``forward`` recomputes a group (its Mamba-2
 layers and the shared block) in the backward under ``cfg.remat``;
 ``decode_step`` updates the cache in place.
+
+Tensor parallelism (a ``model`` axis above 1): the Mamba-2 layers run on
+each rank's heads (``ssm.mamba2_block``; the fused ``in_proj`` held as
+``[z_r | x_r | B | C | dt_r]``, ``tp_fused``), the shared block on its q /
+kv heads and ffn columns as the transformer's blocks do; the caches follow
+``launch.specs.cache_pspecs`` (``conv`` by DI, ``h`` by Mamba-2 head,
+``attn_k`` / ``attn_v`` by kv head, or by slots where the kv heads do not
+divide: ``transformer.cached_attention``).
 """
 from __future__ import annotations
 
@@ -23,7 +31,7 @@ from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import AttnSpec
 from . import layers as L
 from . import ssm
-from .transformer import _ffn, _out, _project_qkv, logits_of
+from .transformer import _ffn, _out, _own_kv, _project_qkv, cached_attention, logits_of
 
 _CAUSAL = AttnSpec(causal=True)
 
@@ -54,6 +62,11 @@ class HybridLM(nn.Module):
             raise ValueError(f"HybridLM takes the hybrid family, not {cfg.family!r}")
         n_groups(cfg)
         self.cfg = cfg
+        # in_proj (D, 2 DI + 2 N + H) is [z | x | B | C | dt]: a model rank
+        # holds [z_r | x_r | B | C | dt_r]
+        di, n = cfg.d_inner, cfg.ssm_state
+        self.tp_fused = {"blocks.in_proj": ((di, True), (di, True), (2 * n, False),
+                                            (di // cfg.ssm_head_dim, True))}
         dtype = dtype or getattr(torch, cfg.param_dtype)
 
         def empty(shape):
@@ -91,20 +104,20 @@ def init_params(cfg: ArchConfig, model: HybridLM, gen: torch.Generator) -> Hybri
 
 
 def _shared_attn_apply(cfg: ArchConfig, x, sp, positions, kv=None, impl: str = "auto"):
-    """The shared block over x; ``kv`` = (k cache, v cache, kv_pos, slot)
-    in decode, where the new key is written at ``slot`` first."""
+    """The shared block over x; ``kv`` = (k cache, v cache, kv_pos, global
+    slot count, slot) in decode, where the new key is written at ``slot``
+    first."""
+    tp = L.local_counts(cfg, sp)
     h = L.rms_norm(x, sp["attn_norm"], cfg.norm_eps)
-    q, k, v = _project_qkv(cfg, h, sp, positions)
+    q, k, v = _project_qkv(cfg, h, sp, positions, tp)
     if kv is None:
-        attn = flash_attention(q, k, v, positions, positions, _CAUSAL, impl=impl)
+        attn = flash_attention(q, _own_kv(tp, k), _own_kv(tp, v), positions, positions,
+                               _CAUSAL, impl=impl)
     else:
-        kc, vc, pc, slot = kv
-        kc[:, slot] = k[:, 0].to(kc.dtype)
-        vc[:, slot] = v[:, 0].to(vc.dtype)
-        pc[:, slot] = positions[:, 0]
-        attn = flash_attention(q, kc, vc, positions, pc, _CAUSAL, kv_valid=pc >= 0, impl=impl)
-    x = x + _out(attn, sp["wo"])
-    return x + _ffn(cfg, L.rms_norm(x, sp["mlp_norm"], cfg.norm_eps), sp)
+        kc, vc, pc, slots, slot = kv
+        attn = cached_attention(q, k, v, kc, vc, pc, slots, slot, positions, _CAUSAL, tp, impl)
+    x = x + _out(attn, sp["wo"], tp.heads_sharded)
+    return x + _ffn(cfg, L.rms_norm(x, sp["mlp_norm"], cfg.norm_eps), sp, tp)
 
 
 def forward(cfg: ArchConfig, model: HybridLM, tokens: torch.Tensor,
@@ -167,7 +180,8 @@ def decode_step(cfg: ArchConfig, model: HybridLM, cache: dict, tokens: torch.Ten
         if (layer + 1) % k == 0:
             g = layer // k
             kc = cache["attn_k"][g]
+            slots = cache.get("attn_slots", kc.shape[1])  # global; this rank's are a block
             x = _shared_attn_apply(cfg, x, sp, positions, impl=impl, kv=(
-                kc, cache["attn_v"][g], cache["attn_pos"][g], min(pos, kc.shape[1] - 1)))
+                kc, cache["attn_v"][g], cache["attn_pos"][g], slots, min(pos, slots - 1)))
     cache["pos"] = pos + 1
     return logits_of(cfg, model, x), cache

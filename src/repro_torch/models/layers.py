@@ -1,29 +1,36 @@
 """Shared building blocks of the port's language models (plain PyTorch);
 counterpart of ``repro.models.layers``.
 
-Tensor parallelism (serving on a ``model`` axis above 1): a rank holds its
-block of every leaf that the rule table puts on ``model``
-(``parallel.sharding``), so a layer reads its local head, kv-head, ffn and
-channel counts off its own leaves (``local_counts``); a product whose
-contracting dim is on ``model`` ends in one all-reduce (``row_parallel``)
-and the logits are gathered along the vocab (``vocab_logits``). A decode
+Tensor parallelism (a ``model`` axis above 1): a rank holds its block of
+every leaf that the rule table puts on ``model`` (``parallel.sharding``), so
+a layer reads its local head, kv-head, ffn, channel and Mamba-2 head counts
+off its own leaves (``local_counts``); a product whose contracting dim is on
+``model`` ends in one all-reduce (``row_parallel``: Megatron's g), and the
+replicated input of a column-parallel product passes through f
+(``sharding.tp_copy``) once. Serving gathers the logits along the vocab
+(``vocab_logits``); a loss (``vocab_parallel``) keeps each rank's vocab
+block and takes the cross-entropy over the blocks (``weighted_cross_entropy``:
+three small all-reduces, the (B, S, V) logits never gathered). A decode
 cache is allocated as ``launch.specs.cache_pspecs`` places it
 (``alloc_cache``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import re
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from ..parallel.sharding import (axis_sizes, current_mesh, embed_rows, gather_fsdp,
-                                 gather_params, sharding_of, tp_all_gather, tp_all_reduce,
-                                 tp_rank)
+from ..parallel.sharding import (_tp_reduce_, axis_sizes, current_mesh, embed_rows,
+                                 gather_fsdp, gather_params, sharding_of, tp_all_gather,
+                                 tp_all_reduce, tp_copy, tp_rank)
 
 
 def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -81,11 +88,13 @@ def weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class LocalCounts:
     """A layer's counts on this rank, read off its leaves: q heads (first
-    global head ``q0``), kv heads, ffn columns and Mamba channels, and
-    whether each is a ``model`` block (then its row-parallel product ends in
-    an all-reduce). The kv heads of a block of q heads are ``kv0`` ..
-    ``kv0 + kv_heads``; where ``wk`` / ``wv`` are whole (MQA, kv heads that
-    do not divide) ``kv_whole`` is set and a rank computes every kv head."""
+    global head ``q0``), kv heads, ffn columns, Mamba channels (first global
+    channel ``c0``) and Mamba-2 heads (first ``h0``), and whether each is a
+    ``model`` block (then its row-parallel product ends in an all-reduce and
+    its column-parallel input passes through f). The kv heads of a block of
+    q heads are ``kv0`` .. ``kv0 + kv_heads``; where ``wk`` / ``wv`` are
+    whole (MQA, kv heads that do not divide) ``kv_whole`` is set and a rank
+    computes every kv head."""
 
     rank: int
     heads: int = 0
@@ -96,20 +105,25 @@ class LocalCounts:
     kv_whole: bool = True
     ffn_sharded: bool = False
     inner: int = 0
+    c0: int = 0
     inner_sharded: bool = False
+    ssm_heads: int = 0
+    h0: int = 0
 
 
-def local_counts(cfg, p: dict) -> LocalCounts:
-    """``LocalCounts`` of one layer's (cast) parameters ``p``."""
+def local_counts(cfg, p: dict, prefix: str = "") -> LocalCounts:
+    """``LocalCounts`` of one layer's (cast) parameters ``p``; ``prefix``
+    names an attention's leaves (``cross_``)."""
     r = tp_rank()
     kw: dict[str, Any] = {}
-    if "wq" in p:
+    if prefix + "wq" in p:
         h, hkv = cfg.padded_heads, cfg.n_kv_heads
-        heads = p["wq"].shape[1]
+        heads = p[prefix + "wq"].shape[1]
         kw.update(heads=heads, q0=r * heads if heads < h else 0, heads_sharded=heads < h)
         group = h // hkv
-        if p["wk"].shape[1] < hkv:  # a kv block beside its q block
-            kw.update(kv_heads=p["wk"].shape[1], kv0=kw["q0"] // group, kv_whole=False)
+        if p[prefix + "wk"].shape[1] < hkv:  # a kv block beside its q block
+            kw.update(kv_heads=p[prefix + "wk"].shape[1], kv0=kw["q0"] // group,
+                      kv_whole=False)
         elif heads < h:  # whole kv: the heads that this q block reads
             if heads % group and group % heads:
                 raise ValueError(f"a block of {heads} q heads does not align with kv groups "
@@ -122,7 +136,16 @@ def local_counts(cfg, p: dict) -> LocalCounts:
         kw["ffn_sharded"] = ff.shape[-1] < cfg.d_ff
     if "x_proj" in p:  # Mamba-1: in_proj holds [x_r | z_r]
         inner = p["in_proj"].shape[-1] // 2
-        kw.update(inner=inner, inner_sharded=inner < cfg.d_inner)
+        kw.update(inner=inner, c0=r * inner, inner_sharded=inner < cfg.d_inner)
+    elif "gate_norm" in p:  # Mamba-2: in_proj holds [z_r | x_r | B | C | dt_r]
+        inner = p["conv_w"].shape[0]
+        heads = inner // cfg.ssm_head_dim
+        if p["in_proj"].shape[-1] != 2 * inner + 2 * cfg.ssm_state + heads:
+            raise NotImplementedError(
+                f"a Mamba-2 in_proj of {p['in_proj'].shape[-1]} columns beside {inner} "
+                f"channels on this rank (the fused parts on model, or none)")
+        kw.update(inner=inner, c0=r * inner, inner_sharded=inner < cfg.d_inner,
+                  ssm_heads=heads, h0=r * heads)
     return LocalCounts(rank=r, **kw)
 
 
@@ -130,16 +153,39 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, sharded: bool) -> torch.Tenso
     """``matmul(x, w)``, summed over the ``model`` group where ``w``'s
     contracting dim is a ``model`` block (one all-reduce, in the product's
     type: the partial sums are rounded to it first, as the JAX package's
-    partitioner rounds them)."""
+    partitioner rounds them; g under autograd)."""
     y = matmul(x, w)
     return tp_all_reduce(y.contiguous()) if sharded else y
+
+
+def column_input(x: torch.Tensor, sharded: bool) -> torch.Tensor:
+    """The replicated input of a column-parallel product: through f
+    (``tp_copy``) where the product's columns are a ``model`` block."""
+    return tp_copy(x) if sharded else x
+
+
+_VOCAB_BLOCKS = False
+
+
+@contextlib.contextmanager
+def vocab_parallel():
+    """Within the block, ``vocab_logits`` returns each rank's vocab block of
+    a vocab-sharded head's logits, ungathered (a loss's forward)."""
+    global _VOCAB_BLOCKS
+    prev, _VOCAB_BLOCKS = _VOCAB_BLOCKS, True
+    try:
+        yield
+    finally:
+        _VOCAB_BLOCKS = prev
 
 
 def vocab_logits(x: torch.Tensor, head: torch.Tensor, vocab_size: int,
                  cap: float = 0.0) -> torch.Tensor:
     """``x @ head`` (head (D, V) or this rank's (D, V / m) block), soft-capped
-    in float32 where ``cap`` is set, then gathered along the vocab."""
-    logits = matmul(x, head)
+    in float32 where ``cap`` is set, then gathered along the vocab (left a
+    block within ``vocab_parallel``)."""
+    block = head.shape[-1] < vocab_size
+    logits = matmul(column_input(x, block), head)
     if cap > 0:
         logits = logits.float()
         # In place where autograd does not record it: a prefill's float32
@@ -147,15 +193,22 @@ def vocab_logits(x: torch.Tensor, head: torch.Tensor, vocab_size: int,
         # B 4 x 2048), and the same ops in place give the same bits.
         logits = (softcap(logits, cap) if logits.requires_grad
                   else logits.div_(cap).tanh_().mul_(cap))
-    return tp_all_gather(logits, -1) if head.shape[-1] < vocab_size else logits
+    return tp_all_gather(logits, -1) if block and not _VOCAB_BLOCKS else logits
+
+
+# A decode cache's kv leaves (their slots may be split over model), and the
+# key leaves among them: "k0" / "k" / "attn_k" / "cross_k" record their
+# global slot count under "slots0" / "slots" / "attn_slots" / "cross_slots".
+_KV_LEAF = re.compile(r"((attn|cross)_)?(k|v|kv_pos)\d*|attn_pos")
+_K_LEAF = re.compile(r"((?:attn|cross)_)?k(\d*)")
 
 
 def alloc_cache(cfg, leaves: dict, batch: int, device) -> dict:
     """A decode cache from ``leaves`` (name -> (global shape, dtype, fill
     value)) of global batch ``batch``: whole without a mesh; under a live
     mesh each rank's block as ``launch.specs.cache_pspecs`` places it, and
-    for every group whose slots are split over ``model`` the global slot
-    count under ``slots{i}`` (``k{i}`` / ``kv_pos{i}``)."""
+    for every key leaf whose slots are split over ``model`` its global slot
+    count (``_K_LEAF``)."""
     mesh = current_mesh()
     if mesh is None or not hasattr(mesh, "get_group"):
         return {k: torch.full(shape, fill, dtype=dt, device=device)
@@ -164,14 +217,15 @@ def alloc_cache(cfg, leaves: dict, batch: int, device) -> dict:
     specs = cache_pspecs(cfg, {k: v[0] for k, v in leaves.items()}, mesh, batch)
     out: dict[str, Any] = {}
     for k, (shape, dt, fill) in leaves.items():
-        axes = seq_axes(specs[k]) if len(shape) >= 3 and k[0] in "kv" else ()
+        axes = seq_axes(specs[k]) if len(shape) >= 3 and _KV_LEAF.fullmatch(k) else ()
         if any(a != "model" for a in axes):
             raise NotImplementedError(
                 f"a cache whose slots are split over the data-parallel axes (a batch of "
                 f"{batch} that does not divide over them) is not ported")
         out[k] = torch.full(local_shape(shape, specs[k], mesh), fill, dtype=dt, device=device)
-        if k.startswith("k") and k[1:].isdigit() and axes and axis_sizes(mesh)["model"] > 1:
-            out[f"slots{k[1:]}"] = shape[2]
+        key = _K_LEAF.fullmatch(k)
+        if key and axes and axis_sizes(mesh)["model"] > 1:
+            out[f"{key.group(1) or ''}slots{key.group(2)}"] = shape[2]
     return out
 
 
@@ -316,24 +370,62 @@ def loss_denominator(labels: torch.Tensor, weights: Optional[torch.Tensor] = Non
     return torch.sum(valid).float()
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token -log softmax(logits)[label] over the vocab blocks of the
+    ``model`` group (this rank's (B, S, V / m) float32 block, first column
+    ``tp_rank() x V / m``): the max by one all-reduce MAX, the sum of
+    exponentials and the label's logit (a masked gather) by one all-reduce
+    SUM each, every rank computing the same (B, S) result. The backward is
+    the local softmax minus the local one-hot, times the incoming gradient
+    (replicated, as the loss is)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        v = logits.shape[-1]
+        mx = _tp_reduce_(logits.amax(dim=-1), dist.ReduceOp.MAX)
+        e = torch.exp(logits - mx[..., None])
+        se = _tp_reduce_(e.sum(dim=-1))
+        idx = labels - tp_rank() * v
+        inside = (idx >= 0) & (idx < v)
+        idx = idx.clamp(0, v - 1)
+        target = torch.gather(logits, -1, idx[..., None])[..., 0]
+        target = _tp_reduce_(torch.where(inside, target, 0.0))
+        ctx.save_for_backward(e.div_(se[..., None]), idx, inside)
+        return torch.log(se) + mx - target
+
+    @staticmethod
+    def backward(ctx, g):
+        softmax, idx, inside = ctx.saved_tensors
+        grad = softmax * g[..., None]
+        grad.scatter_add_(-1, idx[..., None], torch.where(inside, -g, 0.0)[..., None])
+        return grad, None
+
+
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                            weights: Optional[torch.Tensor] = None,
                            logit_softcap: float = 0.0,
-                           denom: Optional[torch.Tensor] = None
+                           denom: Optional[torch.Tensor] = None,
+                           vocab_parallel: bool = False
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token CE in float32 with optional per-SAMPLE weights (the
     Cocktail |D_j| aggregation of eq. 15 folds into these weights). Returns
     (loss, n_tokens); labels < 0 are masked out. ``denom`` (a data-parallel
     rank's global ``loss_denominator``) replaces the batch's own, so the
-    ranks' losses sum to the global weighted mean."""
+    ranks' losses sum to the global weighted mean. ``vocab_parallel``:
+    ``logits`` are this rank's vocab block (``vocab_logits`` within
+    ``vocab_parallel()``) and the log-sum-exp runs over the ``model``
+    group's blocks (``_VocabParallelNLL``)."""
     if logit_softcap > 0:
         logits = softcap(logits, logit_softcap)
     logits = logits.float()
     valid = labels >= 0
     lab = torch.clamp(labels, min=0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lab[..., None])[..., 0]
-    nll = (lse - ll) * valid
+    if vocab_parallel:
+        nll = _VocabParallelNLL.apply(logits, lab) * valid
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+        nll = (lse - ll) * valid
     if weights is not None:
         nll = nll * weights[:, None]
     if denom is None:

@@ -16,7 +16,9 @@ batched ``matmul`` over E, and the combine is a gather; the JAX package
 computes these outside any Pallas kernel too. Under tensor parallelism the
 router stays whole, so the dispatch is the same on every ``model`` rank;
 ``we_gate`` / ``we_up`` hold the rank's ffn columns and ``we_down`` its ffn
-rows, and the combined output is summed over ``model`` once.
+rows, and the combined output is summed over ``model`` once (g). Under
+autograd the dispatched tokens and the gates pass through f (the gates
+scale partial expert outputs), the router reading the tokens directly.
 """
 from __future__ import annotations
 
@@ -102,13 +104,15 @@ def moe_ffn(cfg: ArchConfig, x: torch.Tensor, p: dict, tp_sharded: bool = False
     if _routing_log is not None:
         _routing_log.append((gate_idx, keep.reshape(t, k)))
     kept = keep[:, None].to(x.dtype)
-    xr = xf[:, None, :].expand(t, k, d).reshape(t * k, d) * kept
+    xr = L.column_input(xf, tp_sharded)[:, None, :].expand(t, k, d).reshape(t * k, d) * kept
     expert_in = torch.zeros((e * c + 1, d), dtype=x.dtype, device=x.device).index_add(
         0, slot, xr)[:e * c].reshape(e, c, d)
     h = L.activate(L.matmul(expert_in, p["we_gate"]), cfg.act) * L.matmul(expert_in, p["we_up"])
     out = L.matmul(h, p["we_down"]).reshape(e * c, d)  # (E, C, D) -> (E C, D)
     out = torch.cat([out, out.new_zeros((1, d))])  # the spill row reads zeros
-    gates = gate_vals.reshape(t * k, 1).to(out.dtype) * kept.to(out.dtype)
+    # The gates scale partial expert outputs: f, so the router's gradient is whole.
+    gates = L.column_input(gate_vals.reshape(t * k, 1).to(out.dtype), tp_sharded) * \
+        kept.to(out.dtype)
     weighted = torch.index_select(out, 0, slot) * gates
     combined = weighted.reshape(t, k, d).sum(dim=1)
     if tp_sharded:

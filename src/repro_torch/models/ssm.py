@@ -10,12 +10,22 @@ device: no kernel, as in the JAX package). Decode is O(1) per token: a K-1
 conv tail and the recurrent state per layer, updated in place by
 ``decode_step``.
 
-Tensor parallelism (Mamba-1, serving on a ``model`` axis above 1): a rank
-holds its block of the DI channels -- ``in_proj`` as ``[x_r | z_r]``
-(``tp_fused``), ``conv_w``, ``conv_b``, ``dt_proj``'s columns, ``dt_bias``,
-``a_log``, ``ssm_d``, ``x_proj``'s and ``out_proj``'s rows -- and of the
-``conv`` / ``h`` cache; ``x_proj``'s (dt, B, C) output and ``out_proj``'s
-are all-reduced, and the scan runs on DI / m channels.
+Tensor parallelism (a ``model`` axis above 1). Mamba-1: a rank holds its
+block of the DI channels -- ``in_proj`` as ``[x_r | z_r]`` (``tp_fused``),
+``conv_w``, ``conv_b``, ``dt_proj``'s columns, ``dt_bias``, ``a_log``,
+``ssm_d``, ``x_proj``'s and ``out_proj``'s rows -- and of the ``conv`` /
+``h`` cache; ``x_proj``'s (dt, B, C) output and ``out_proj``'s are
+all-reduced, and the scan runs on DI / m channels. Mamba-2: a rank holds its
+block of the heads -- ``in_proj`` as ``[z_r | x_r | B | C | dt_r]`` (B and C
+whole on every rank), ``conv_w`` / ``conv_b`` on its DI channels,
+``dt_bias`` / ``ssm_d`` by head, ``out_proj``'s rows -- while ``a_log`` and
+``gate_norm`` are whole (the rank slices its heads / channels at use); the
+gated RMSNorm normalises over the whole DI (its sum of squares all-reduced).
+Under autograd the replicated inputs of rank-local work pass through f
+(``layers.column_input``): the normed stream before ``in_proj``, Mamba-1's
+all-reduced (dt, B, C), Mamba-2's B and C products (not the stream: its
+gradient would count that path m times), the gated norm's sum of squares,
+``a_log`` and ``gate_norm``.
 """
 from __future__ import annotations
 
@@ -28,7 +38,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..kernels.mamba_scan.ops import mamba1_scan, mamba2_scan
-from ..parallel.sharding import tp_all_reduce
+from ..parallel.sharding import tp_all_reduce, tp_copy
 from . import layers as L
 
 
@@ -163,13 +173,14 @@ def mamba1_block(cfg: ArchConfig, x, p, state=None, impl: str = "auto"):
     tp = L.local_counts(cfg, p)
     di = tp.inner  # this rank's channels
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    xi, z = torch.matmul(h, p["in_proj"]).split([di, di], dim=-1)
+    xi, z = torch.matmul(L.column_input(h, tp.inner_sharded), p["in_proj"]).split([di, di],
+                                                                                 dim=-1)
     xi, new_conv = causal_conv(xi, p["conv_w"], p["conv_b"],
                                None if state is None else state["conv"])
     xi = F.silu(xi)
     proj = torch.matmul(xi, p["x_proj"])
     if tp.inner_sharded:
-        proj = tp_all_reduce(proj)
+        proj = tp_copy(tp_all_reduce(proj))
     dt_r, bmat, cmat = proj.split([r, n, n], dim=-1)
     dt = F.softplus(torch.matmul(dt_r, p["dt_proj"]) + p["dt_bias"])
     a = -torch.exp(p["a_log"].float())
@@ -180,26 +191,57 @@ def mamba1_block(cfg: ArchConfig, x, p, state=None, impl: str = "auto"):
     return out, (None if state is None else {"conv": new_conv, "h": h_new})
 
 
+def _mamba2_in_proj(x, w, tp: L.LocalCounts, n: int):
+    """(z, x, B, C, dt) of ``x`` by a fused ``in_proj``; on a rank's block
+    ``[z_r | x_r | B | C | dt_r]``, z / x / dt from the stream through f and
+    B / C from the stream itself, through f as products."""
+    di, heads = tp.inner, tp.ssm_heads
+    if not tp.inner_sharded:
+        return L.matmul(x, w).split([di, di, n, n, heads], dim=-1)
+    xf = tp_copy(x)
+    z, xi = L.matmul(xf, w[..., :2 * di]).split([di, di], dim=-1)
+    bmat, cmat = tp_copy(L.matmul(x, w[..., 2 * di:2 * di + 2 * n])).split([n, n], dim=-1)
+    return z, xi, bmat, cmat, L.matmul(xf, w[..., 2 * di + 2 * n:])
+
+
+def gated_rms_norm(cfg: ArchConfig, y: torch.Tensor, w: torch.Tensor,
+                   tp: L.LocalCounts) -> torch.Tensor:
+    """RMSNorm over the whole DI of ``y`` (this rank's channels ``c0`` ..
+    ``c0 + inner`` under tensor parallelism: the sum of squares summed over
+    ``model``, one all-reduce of B x S floats) with the whole gain ``w``."""
+    if not tp.inner_sharded:
+        return L.rms_norm(y, w, cfg.norm_eps)
+    yf = y.float()
+    ss = tp_copy(tp_all_reduce(torch.sum(yf * yf, dim=-1, keepdim=True)))
+    gain = tp_copy(w)[tp.c0:tp.c0 + tp.inner]
+    return (yf * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps) * (1.0 + gain.float())).to(y.dtype)
+
+
 def mamba2_block(cfg: ArchConfig, x, p, state=None, impl: str = "auto"):
     """Mamba-2 (SSD) block: heads = d_inner / ssm_head_dim sharing B and C,
     a per-head D term and the gated RMSNorm. x (B, S, D); state None
-    (prefill) or dict(conv, h) for decode. Returns (out, new_state)."""
-    di, n, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
-    heads = di // ph
+    (prefill) or dict(conv, h) for decode. Returns (out, new_state). Under
+    tensor parallelism on this rank's heads (see the module doc)."""
+    n, ph = cfg.ssm_state, cfg.ssm_head_dim
+    tp = L.local_counts(cfg, p)
+    di, heads = tp.inner, tp.ssm_heads
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    z, xi, bmat, cmat, dt_in = L.matmul(h, p["in_proj"]).split([di, di, n, n, heads], dim=-1)
+    z, xi, bmat, cmat, dt_in = _mamba2_in_proj(h, p["in_proj"], tp, n)
     xi, new_conv = causal_conv(xi, p["conv_w"], p["conv_b"],
                                None if state is None else state["conv"])
     xi = F.silu(xi)
     dt = F.softplus(dt_in + p["dt_bias"])  # (B, S, H)
-    a = -torch.exp(p["a_log"].float())  # (H,)
+    a_log = p["a_log"]
+    if tp.inner_sharded:  # whole on every rank: this rank's heads
+        a_log = tp_copy(a_log)[tp.h0:tp.h0 + heads]
+    a = -torch.exp(a_log.float())  # (H,)
     bsz, s = xi.shape[:2]
     xh = xi.reshape(bsz, s, heads, ph)
     y, h_new = mamba2_scan(xh, dt, a, bmat, cmat, h0=None if state is None else state["h"],
                            chunk=cfg.ssm_chunk, impl=impl)
     y = (y + xh * p["ssm_d"][:, None]).reshape(bsz, s, di)  # per-head D term
-    y = L.rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)  # gated RMSNorm
-    out = x + L.matmul(y, p["out_proj"])
+    y = gated_rms_norm(cfg, y * F.silu(z), p["gate_norm"], tp)
+    out = x + L.row_parallel(y, p["out_proj"], tp.inner_sharded)
     return out, (None if state is None else {"conv": new_conv, "h": h_new})
 
 

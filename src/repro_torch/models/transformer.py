@@ -25,11 +25,13 @@ patch embeddings, ``vlm.py``).
     caches for global layers; ``kv_pos`` holds absolute positions (-1 for an
     empty slot), so masks stay right after wrap-around. ``decode_step``
     writes the caches in place (the JAX version returns new ones).
-  * Tensor parallelism (serving on a ``model`` axis above 1, the JAX
-    package's GSPMD layout): a rank runs its block of q heads (and of kv
-    heads where they divide; else it computes every kv head and reads those
-    of its block), of ffn columns and of the vocab; ``wo`` and ``w_down``
-    end in one all-reduce each, the logits are gathered along the vocab.
+  * Tensor parallelism (a ``model`` axis above 1, the JAX package's GSPMD
+    layout): a rank runs its block of q heads (and of kv heads where they
+    divide; else it computes every kv head and reads those of its block),
+    of ffn columns and of the vocab; ``wo`` and ``w_down`` end in one
+    all-reduce each (g), the column-parallel inputs and whole kv products
+    pass through f (``parallel.sharding.tp_copy``), and the logits are
+    gathered along the vocab (a loss keeps each rank's block).
     The decode cache is laid out by ``launch.specs.cache_pspecs``: by kv
     heads where they divide (``heads``), else by slots (``seq``): q is
     gathered over ``model``, each rank writes the new key only where it owns
@@ -49,7 +51,7 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import AttnSpec
-from ..parallel.sharding import sharding_of, tp_all_gather
+from ..parallel.sharding import sharding_of, tp_all_gather, tp_copy
 from . import layers as L
 from . import moe
 
@@ -145,11 +147,25 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return L.matmul(x, w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
 
 
-def _project_qkv(cfg: ArchConfig, x, p, positions):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _project_qkv(cfg: ArchConfig, x, p, positions, tp: Optional[L.LocalCounts] = None,
+                 prefix: str = "", rope: bool = True):
+    """q, k, v of ``x`` (B, S, D) by the leaves ``prefix`` + wq / wk / wv
+    (and biases), rope'd where ``rope``. Under tensor parallelism the q
+    block (and a kv block beside it) reads ``x`` through f; whole kv heads
+    beside a q block are computed from ``x`` itself and pass through f as
+    products (each rank reads only its block's kv heads)."""
+    heads = tp is not None and tp.heads_sharded
+    xq = L.column_input(x, heads)
+    kv_whole = heads and tp.kv_whole
+    q = _proj(xq, p[prefix + "wq"])
+    k, v = (_proj(x if kv_whole else xq, p[prefix + name]) for name in ("wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return L.apply_rope(q, positions, cfg.rope_theta), L.apply_rope(k, positions, cfg.rope_theta), v
+    if kv_whole:
+        k, v = tp_copy(k), tp_copy(v)
+    if rope:
+        q, k = L.apply_rope(q, positions, cfg.rope_theta), L.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
 def _own_kv(tp: L.LocalCounts, k: torch.Tensor) -> torch.Tensor:
@@ -164,7 +180,8 @@ def _ffn(cfg: ArchConfig, x, p, tp: Optional[L.LocalCounts] = None):
     sharded = tp is not None and tp.ffn_sharded
     if cfg.family == "moe":
         return moe.moe_ffn(cfg, x, p, tp_sharded=sharded)
-    if cfg.act in ("silu", "gelu"):
+    x = L.column_input(x, sharded)
+    if "w_gate" in p:
         h = L.activate(L.matmul(x, p["w_gate"]), cfg.act) * L.matmul(x, p["w_up"])
     else:
         h = L.activate(L.matmul(x, p["w_up"]), cfg.act)
@@ -192,7 +209,7 @@ def block_apply(cfg: ArchConfig, x, p, positions, spec: AttnSpec, impl: str = "a
     """One transformer block over a whole sequence (its own keys)."""
     tp = L.local_counts(cfg, p)
     h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    q, k, v = _project_qkv(cfg, h, p, positions)
+    q, k, v = _project_qkv(cfg, h, p, positions, tp)
     attn = flash_attention(q, _own_kv(tp, k), _own_kv(tp, v), positions, positions, spec,
                            impl=impl)
     return _residual_tail(cfg, x, _out(attn, p["wo"], tp.heads_sharded), p, tp)
@@ -209,7 +226,7 @@ def merge_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
     return (o.float() * w[..., None]).sum(dim=0) / w.sum(dim=0)[..., None]
 
 
-def _seq_attention(q, kc, vc, positions, pc, spec, tp, impl):
+def seq_attention(q, kc, vc, positions, pc, spec, tp, impl):
     """Decode attention over a cache whose slots are split over ``model``:
     every q head (gathered where they are a block) over this rank's slots,
     (o, lse) merged over the ranks by one all-gather, then this rank's
@@ -222,6 +239,25 @@ def _seq_attention(q, kc, vc, positions, pc, spec, tp, impl):
     parts = tp_all_gather(part[None], 0)
     out = merge_partials(parts[..., :-1], parts[..., -1]).to(q.dtype)
     return out[:, :, tp.q0:tp.q0 + tp.heads] if tp.heads_sharded else out
+
+
+def cached_attention(q, k_new, v_new, kc, vc, pc, slots: int, slot: int, positions,
+                     spec: AttnSpec, tp: L.LocalCounts, impl: str = "auto"):
+    """One decode step's attention over a KV cache of ``slots`` global
+    slots (this rank's block of them where ``kc`` holds fewer): the new
+    key and value are written at global ``slot`` where this rank owns it,
+    then q attends over the cache (``seq_attention`` where the slots are
+    split; else over the kv heads of this rank's q block)."""
+    split = slots != kc.shape[1]
+    slot -= tp.rank * kc.shape[1] if split else 0
+    if 0 <= slot < kc.shape[1]:  # this rank owns the slot
+        kc[:, slot] = k_new[:, 0].to(kc.dtype)
+        vc[:, slot] = v_new[:, 0].to(vc.dtype)
+        pc[:, slot] = positions[:, 0]
+    if split:
+        return seq_attention(q, kc, vc, positions, pc, spec, tp, impl)
+    return flash_attention(q, _own_kv(tp, kc), _own_kv(tp, vc), positions, pc, spec,
+                           kv_valid=pc >= 0, impl=impl)
 
 
 # ---------------------------------------------------------------------------
@@ -313,18 +349,9 @@ def decode_step(cfg: ArchConfig, model: DenseLM, cache: dict, tokens: torch.Tens
         slots = cache.get(f"slots{i}", kc.shape[1])  # global; this rank's are a block
         slot = pos % slots if spec.window > 0 else min(pos, slots - 1)
         h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        q, k_new, v_new = _project_qkv(cfg, h, p, positions)
-        split = slots != kc.shape[1]
-        slot -= tp.rank * kc.shape[1] if split else 0
-        if 0 <= slot < kc.shape[1]:  # this rank owns the slot
-            kc[:, slot] = k_new[:, 0].to(kc.dtype)
-            vc[:, slot] = v_new[:, 0].to(vc.dtype)
-            pc[:, slot] = pos
-        if split:
-            attn = _seq_attention(q, kc, vc, positions, pc, spec, tp, impl)
-        else:
-            attn = flash_attention(q, _own_kv(tp, kc), _own_kv(tp, vc), positions, pc, spec,
-                                   kv_valid=pc >= 0, impl=impl)
+        q, k_new, v_new = _project_qkv(cfg, h, p, positions, tp)
+        attn = cached_attention(q, k_new, v_new, kc, vc, pc, slots, slot, positions, spec, tp,
+                                impl)
         x = _residual_tail(cfg, x, _out(attn, p["wo"], tp.heads_sharded), p, tp)
     cache["pos"] = pos + 1
     return logits_of(cfg, model, x), cache

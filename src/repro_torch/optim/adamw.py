@@ -19,7 +19,7 @@ from typing import Any, Mapping, NamedTuple, Optional
 
 import torch
 
-from ..parallel.sharding import all_reduce_, sharding_of
+from ..parallel.sharding import all_reduce_, model_axis, sharding_of
 
 # Elements of a leaf updated at once: bounds the update's temporaries to
 # two float32 chunks (512 MiB) whatever the leaf's size.
@@ -65,18 +65,38 @@ def global_norm(grads: Mapping[str, torch.Tensor],
     Under a mesh (``shardings``: name -> each leaf's ``Sharding``), the
     norm of the global arrays: a leaf sharded over ``data`` counts the sum
     of its ranks' squares (one all-reduce over ``data`` for every leaf at
-    once), a replicated leaf counts once; the leaves are then summed in the
-    order of the unsharded norm."""
+    once), a replicated leaf counts once; on a ``model`` axis above 1 the
+    same over ``model`` (one more all-reduce), where the parts of a fused
+    leaf that every rank holds whole (Mamba-2's B and C columns) count
+    once. The leaves are then summed in the order of the unsharded norm."""
     sq = torch.stack([torch.dot(g.reshape(-1).float(), g.reshape(-1).float())
                       for g in grads.values()])
     shardings = shardings or {}
     mesh = next((s.mesh for s in shardings.values() if s is not None), None)
     if mesh is not None:
-        sharded = torch.tensor([(s := shardings.get(k)) is not None and s.dim is not None
-                                for k in grads], device=sq.device)
+        shs = [shardings.get(k) for k in grads]
+        if model_axis(mesh) > 1:  # blocked parts on every model rank, whole ones on rank 0
+            first = mesh.get_local_rank("model") == 0
+            sq = torch.stack([_model_part(g, s, sq[i], first)
+                              for i, (g, s) in enumerate(zip(grads.values(), shs))])
+            sq = all_reduce_(sq, [mesh.get_group("model")])
+        sharded = torch.tensor([s is not None and s.dim is not None for s in shs],
+                               device=sq.device)
         first = mesh.get_local_rank("data") == 0
         sq = all_reduce_(torch.where(sharded | first, sq, 0.0), [mesh.get_group("data")])
     return torch.sqrt(sq.sum())
+
+
+def _model_part(g: torch.Tensor, sh, sq: torch.Tensor, first: bool) -> torch.Tensor:
+    """This ``model`` rank's share of a leaf's sum of squares ``sq``: all
+    of a block's but the parts held whole on every rank, which rank 0
+    alone counts."""
+    if sh is None or sh.tp_dim is None:
+        return sq if first else torch.zeros_like(sq)
+    for lo, hi in ([] if first else sh.tp_whole()):
+        part = g.narrow(sh.tp_dim, lo, hi - lo).float()
+        sq = sq - torch.sum(part * part)
+    return sq
 
 
 @torch.no_grad()

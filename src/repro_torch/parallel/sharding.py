@@ -24,13 +24,17 @@ rank's batch, and the gradient reduction across the ranks is eq. 15's
 |D_j|-weighted aggregation (``launch/steps.py``).
 
 Execution covers meshes whose ``model`` axis has size 1, in every style,
-and serving on a larger ``model`` axis in the ``serve`` and ``tp`` styles
-for the dense, MoE, Mamba-1 and VLM families: each rank keeps its block of
-every leaf on both axes (``Sharding``), a product whose contracting dim is
-on ``model`` ends in one ``tp_all_reduce``, and logits are gathered along
-the vocab (``tp_all_gather``). Training on such a mesh, the hybrid and
-encoder-decoder families on it, and the ``fsdp`` / ``tp_sp`` styles on it
-raise (ROADMAP.md, Queue 1 item 6).
+and a larger ``model`` axis in the ``serve`` and ``tp`` styles for every
+family, serving and training: each rank keeps its block of every leaf on
+both axes (``Sharding``), a product whose contracting dim is on ``model``
+ends in one ``tp_all_reduce``, and serving gathers the logits along the
+vocab (``tp_all_gather``). Under autograd these are Megatron's pair: g
+(``tp_all_reduce``: all-reduce forward, identity backward) and f
+(``tp_copy``: identity forward, all-reduce of the gradient backward), put
+on every replicated activation that rank-local work consumes, so a
+replicated leaf's gradient comes out whole and equal on every ``model``
+rank. The ``fsdp`` / ``tp_sp`` styles on such a mesh raise (ROADMAP.md,
+Queue 1 item 6c).
 """
 from __future__ import annotations
 
@@ -53,12 +57,15 @@ _MESH: Any = None
 #   "serve" weights TP-sharded on model and replicated over data
 _STYLE: str = "tp"
 
-TP_PENDING = ("tensor-parallel training (a train step on a model axis above 1: the "
-              "f / g autograd pair, vocab-parallel cross-entropy) is not ported "
-              "(ROADMAP.md, Queue 1 item 6)")
-# Families and styles that execute on a model axis above 1 (serving).
-TP_FAMILIES = ("dense", "moe", "ssm", "vlm")
+# Styles that execute on a model axis above 1 (every family does).
 TP_STYLES = ("serve", "tp")
+
+
+def tp_style_pending(style: str) -> str:
+    """The refusal of a style that does not run on a model axis above 1."""
+    return (f"the {style} style on a model axis above 1 (tp_sp: sequence-sharded remat "
+            f"carries; fsdp: whole-layer gathers over every axis) is not ported "
+            f"(ROADMAP.md, Queue 1 item 6c); it takes {TP_STYLES}")
 
 # Collectives issued by this package since the last reset, and their bytes
 # (each rank's payload: what it sends into an all-gather, its full input
@@ -221,20 +228,11 @@ def model_axis(mesh) -> int:
     return axis_sizes(mesh).get("model", 1) if mesh is not None else 1
 
 
-def _check_executable(mesh, params) -> None:
-    """Raises where a ``model`` axis above 1 meets what it does not run yet:
-    another family than ``TP_FAMILIES``, another style than ``TP_STYLES``."""
-    if model_axis(mesh) == 1:
-        return
-    family = getattr(getattr(params, "cfg", None), "family", None)
-    if family is not None and family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"tensor parallelism for the {family} family is not ported (ROADMAP.md, "
-            f"Queue 1 item 6); it runs on a model axis of 1")
-    if _STYLE not in TP_STYLES:
-        raise NotImplementedError(
-            f"the {_STYLE} style on a model axis above 1 is not ported (ROADMAP.md, "
-            f"Queue 1 item 6); serving takes {TP_STYLES}")
+def _check_executable(mesh) -> None:
+    """Raises where a ``model`` axis above 1 meets a style it does not run
+    yet (another than ``TP_STYLES``)."""
+    if model_axis(mesh) > 1 and _STYLE not in TP_STYLES:
+        raise NotImplementedError(tp_style_pending(_STYLE))
 
 
 def _coord(mesh, axes) -> tuple[int, int]:
@@ -257,15 +255,18 @@ def _cat(pieces, dim: int):
 @dataclasses.dataclass(frozen=True, eq=False)
 class Sharding:
     """A leaf's placement on a live mesh: its spec, its global shape, and
-    ``parts``, the equal parts of its ``model`` dim that are blocked each on
-    its own (2 for Mamba-1's fused ``in_proj`` ``[x | z]``: a rank holds
-    ``[x_r | z_r]``, not block r of the concatenation, while the global
-    array keeps the JAX package's layout)."""
+    ``parts``, the parts of its ``model`` dim that are blocked each on its
+    own: an int for that many equal parts (2 for Mamba-1's fused
+    ``in_proj`` ``[x | z]``: a rank holds ``[x_r | z_r]``, not block r of
+    the concatenation), or a tuple of (size, blocked) parts, where a part
+    that is not blocked is whole on every rank (Mamba-2's ``[z | x | B | C
+    | dt]``: a rank holds ``[z_r | x_r | B | C | dt_r]``). The global array
+    keeps the JAX package's layout either way."""
 
     mesh: Any
     spec: tuple
     global_shape: tuple[int, ...]
-    parts: int = 1
+    parts: Any = 1
 
     @property
     def dim(self) -> Optional[int]:
@@ -285,16 +286,45 @@ class Sharding:
     def tp_group(self):
         return self.mesh.get_group("model")
 
-    def _axes(self):
-        return ((self.dim, "data", 1), (self.tp_dim, "model", self.parts))
+    def segments(self, n: int) -> list[tuple[int, int, bool]]:
+        """(global size, size on a rank, blocked) of each part of the
+        ``model`` dim over ``n`` ranks; raises where a blocked part does not
+        divide."""
+        size = self.global_shape[self.tp_dim]
+        parts = self.parts
+        if isinstance(parts, int):
+            parts = ((size // parts, True),) * parts
+        if sum(p for p, _ in parts) != size:
+            raise ValueError(f"parts {parts} do not make up the model dim of {size}")
+        out = []
+        for p, blocked in parts:
+            if blocked and p % n:
+                raise NotImplementedError(
+                    f"a part of {p} of a fused leaf {self.global_shape} does not divide over "
+                    f"a model axis of {n}")
+            out.append((p, p // n if blocked else p, blocked))
+        return out
+
+    def tp_whole(self) -> list[tuple[int, int]]:
+        """(start, stop) on a rank's block of the parts of the ``model`` dim
+        that every rank holds whole."""
+        if self.tp_dim is None:
+            return []
+        out, at = [], 0
+        for _, local, blocked in self.segments(_coord(self.mesh, ("model",))[1]):
+            if not blocked:
+                out.append((at, at + local))
+            at += local
+        return out
 
     def offset(self, dim: int) -> int:
         """Where this rank's block starts along ``dim`` of the global array
         (a dim of one part)."""
-        for d, axis, parts in self._axes():
+        for d, axis in ((self.dim, "data"), (self.tp_dim, "model")):
             if d == dim:
-                if parts != 1:
-                    raise ValueError(f"dim {dim} holds {parts} parts blocked each on its own")
+                if axis == "model" and self.parts != 1:
+                    raise ValueError(f"dim {dim} holds the parts {self.parts}, each blocked "
+                                     f"on its own")
                 r, n = _coord(self.mesh, (axis,))
                 return r * (self.global_shape[dim] // n)
         return 0
@@ -307,18 +337,18 @@ class Sharding:
             raise ValueError(f"shape {tuple(full.shape)} is not the global shape "
                              f"{self.global_shape}")
         out = full
-        for dim, axis, parts in self._axes():
-            if dim is None:
-                continue
-            r, n = _coord(self.mesh, (axis,))
-            part = full.shape[dim] // parts
-            size = part // n
-            pieces = []
-            for j in range(parts):
-                index = [slice(None)] * len(full.shape)
-                index[dim] = slice(j * part + r * size, j * part + (r + 1) * size)
-                pieces.append(out[tuple(index)])
-            out = pieces[0] if parts == 1 else _cat(pieces, dim)
+        if self.dim is not None:
+            r, n = _coord(self.mesh, ("data",))
+            size = full.shape[self.dim] // n
+            out = _narrow(out, self.dim, r * size, size)
+        if self.tp_dim is not None:
+            r, n = _coord(self.mesh, ("model",))
+            pieces, start = [], 0
+            for size, local, blocked in self.segments(n):
+                pieces.append(_narrow(out, self.tp_dim,
+                                      start + (r * local if blocked else 0), local))
+                start += size
+            out = pieces[0] if len(pieces) == 1 else _cat(pieces, self.tp_dim)
         return out
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
@@ -329,17 +359,27 @@ class Sharding:
             out = all_gather(out, self.dim, self.group)
         if self.tp_dim is not None:
             d, n = self.tp_dim, dist.get_world_size(self.tp_group)
-            out = all_gather(out, d, self.tp_group)  # [part 0 | part 1 ...] of each rank
-            if self.parts > 1:
-                moved = out.movedim(d, -1)
-                s = moved.shape[-1] // (n * self.parts)
-                moved = moved.reshape(*moved.shape[:-1], n, self.parts, s).transpose(-3, -2)
-                out = moved.reshape(*moved.shape[:-3], -1).movedim(-1, d).contiguous()
+            out = all_gather(out, d, self.tp_group)  # every rank's parts, rank by rank
+            segs = self.segments(n)
+            if len(segs) > 1:
+                width = sum(local for _, local, _ in segs)
+                pieces, at = [], 0
+                for _, size, blocked in segs:
+                    ranks = range(n) if blocked else range(1)
+                    pieces += [out.narrow(d, r * width + at, size) for r in ranks]
+                    at += size
+                out = torch.cat(pieces, d)
         return out
 
     def per_layer(self) -> "Sharding":
         """The placement of one layer's view of a stacked leaf."""
         return Sharding(self.mesh, self.spec[1:], self.global_shape[1:], self.parts)
+
+
+def _narrow(x, dim: int, start: int, size: int):
+    index = [slice(None)] * len(x.shape)
+    index[dim] = slice(start, start + size)
+    return x[tuple(index)]
 
 
 def sharding_of(t) -> Optional[Sharding]:
@@ -350,14 +390,17 @@ def param_shardings(params) -> dict[str, Optional[Sharding]]:
     return {k: sharding_of(p) for k, p in _named(params).items()}
 
 
-def _fused(params) -> dict[str, int]:
+def _fused(params) -> dict[str, Any]:
     """name -> parts of the model's fused leaves (``tp_fused``)."""
     return dict(getattr(params, "tp_fused", {}))
 
 
 def _placement(name: str, p: torch.Tensor, mesh, parts: dict) -> Sharding:
-    return Sharding(mesh, param_pspec(name, tuple(p.shape), mesh), tuple(p.shape),
-                    parts.get(name, 1))
+    sh = Sharding(mesh, param_pspec(name, tuple(p.shape), mesh), tuple(p.shape),
+                  parts.get(name, 1))
+    if sh.tp_dim is not None:
+        sh.segments(model_axis(mesh))  # raises where a fused part does not divide
+    return sh
 
 
 @torch.no_grad()
@@ -365,9 +408,9 @@ def shard_params(params, mesh):
     """Keep each rank's block of every parameter of ``params`` (a module,
     whose parameters are replaced in place, or a name -> tensor mapping,
     for which a new dict is returned) under the rule table, and record each
-    leaf's ``Sharding`` on it. On a ``model`` axis above 1 only what
-    serving runs is accepted (``_check_executable``)."""
-    _check_executable(mesh, params)
+    leaf's ``Sharding`` on it. On a ``model`` axis above 1 the ``tp_sp`` and
+    ``fsdp`` styles raise (``_check_executable``)."""
+    _check_executable(mesh)
     parts = _fused(params)
     out = {}
     for name, p in _named(params).items():
@@ -392,7 +435,7 @@ def empty_blocks(module: torch.nn.Module, mesh, device) -> torch.nn.Module:
     of this rank's block, its ``Sharding`` recorded on it, so that the
     initialisers draw each global block and keep this rank's
     (``models.layers.dense_fill_``)."""
-    _check_executable(mesh, module)
+    _check_executable(mesh)
     parts = _fused(module)
     for name, p in list(module.named_parameters()):
         sh = _placement(name, p, mesh, parts)
@@ -480,25 +523,91 @@ def tp_rank() -> int:
     return _MESH.get_local_rank("model") if tp_size() > 1 else 0
 
 
+def _tp_reduce_(x: torch.Tensor, op=dist.ReduceOp.SUM, key: str = "tp_all_reduce"
+                ) -> torch.Tensor:
+    """Reduce ``x`` in place over the ``model`` group (``op``), counted
+    under ``key``; returns ``x``."""
+    dist.all_reduce(x, op=op, group=_MESH.get_group("model"))
+    comm_counts[key] += 1
+    comm_counts[f"{key}_bytes"] += x.numel() * x.element_size()
+    return x
+
+
+def _recorded(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _AllReduceG(torch.autograd.Function):
+    """Megatron's g: the sum over ``model`` forward, the identity backward
+    (what follows is replicated, so its gradient is whole on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _tp_reduce_(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _CopyF(torch.autograd.Function):
+    """Megatron's f: the identity forward, the sum over ``model`` of the
+    gradient backward (each rank's rank-local work gives a part of it);
+    counted under ``tp_copy_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tp_reduce_(g.clone(memory_format=torch.contiguous_format), key="tp_copy_bwd")
+
+
+class _AllGatherTP(torch.autograd.Function):
+    """The ``model`` group's blocks concatenated along ``dim``; the backward
+    takes this rank's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.size = dim % x.dim(), x.shape[dim]
+        return all_gather(x, dim, _MESH.get_group("model"), key="tp_all_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, tp_rank() * ctx.size, ctx.size), None
+
+
 def tp_all_reduce(x: torch.Tensor) -> torch.Tensor:
-    """Sum ``x`` in place over the ``model`` group of the installed mesh
-    (the end of a product whose contracting dim is on ``model``), in its own
-    type; returns ``x``. The identity on a ``model`` axis of 1. A forward
-    collective (serving): no autograd."""
+    """Sum ``x`` over the ``model`` group of the installed mesh (the end of a
+    product whose contracting dim is on ``model``), in its own type. In
+    place where autograd does not record it (serving); under autograd
+    Megatron's g (``_AllReduceG``: a new tensor, the identity backward).
+    The identity on a ``model`` axis of 1."""
     if tp_size() == 1:
         return x
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=_MESH.get_group("model"))
-    comm_counts["tp_all_reduce"] += 1
-    comm_counts["tp_all_reduce_bytes"] += x.numel() * x.element_size()
-    return x
+    return _AllReduceG.apply(x) if _recorded(x) else _tp_reduce_(x)
+
+
+def tp_copy(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's f on a replicated activation (or leaf) that rank-local
+    work consumes: ``x`` forward, its gradient summed over ``model``
+    backward. ``x`` itself where autograd does not record it or on a
+    ``model`` axis of 1."""
+    if tp_size() == 1 or not _recorded(x):
+        return x
+    return _CopyF.apply(x)
 
 
 def tp_all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The ``model`` group's blocks of ``x`` concatenated along ``dim`` in
     rank order (logits along the vocab, q along the heads); ``x`` itself on
-    a ``model`` axis of 1. No autograd."""
+    a ``model`` axis of 1. Under autograd the backward keeps this rank's
+    block of the gradient."""
     if tp_size() == 1:
         return x
+    if _recorded(x):
+        return _AllGatherTP.apply(x, dim)
     return all_gather(x, dim, _MESH.get_group("model"), key="tp_all_gather")
 
 
@@ -571,44 +680,52 @@ def gather_fsdp(w: torch.Tensor, sharding: Optional[Sharding]) -> torch.Tensor:
     return gather_params({"w": w}, {"w": sharding})["w"]
 
 
-class _GatherRows(torch.autograd.Function):
-    """``table[idx]`` in ``dtype`` from this rank's block of the table: the
-    forward gathers the cast table; the backward accumulates the rows'
-    gradient in float32 (as the unsharded lookup's backward does) and
-    reduce-scatters it in float32."""
+class _LookupRows(torch.autograd.Function):
+    """``table[idx]`` in ``dtype`` from this rank's block of the table (its
+    ``data`` shard gathered in ``dtype`` first where ``group`` is set), zero
+    rows for the indices outside the block (a vocab block on ``model``):
+    the backward accumulates the rows' gradient in float32 (as the
+    unsharded lookup's backward does) and reduce-scatters it in float32
+    over ``group``."""
 
     @staticmethod
     def forward(ctx, w, idx, dim, group, dtype):
-        full = all_gather(w.to(dtype), dim, group)
-        ctx.save_for_backward(idx)
+        full = w.to(dtype) if group is None else all_gather(w.to(dtype), dim, group)
+        n = full.shape[0]
+        inside = (idx >= 0) & (idx < n)
+        idx = idx.clamp(0, n - 1)
+        rows = full[idx]
+        ctx.save_for_backward(idx, inside)
         ctx.dim, ctx.group, ctx.shape = dim, group, full.shape
-        return full[idx]
+        return torch.where(inside[..., None], rows, torch.zeros_like(rows))
 
     @staticmethod
     def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        full = g.new_zeros(ctx.shape, dtype=torch.float32).index_put_(
-            (idx,), g.float(), accumulate=True)
-        return reduce_scatter(full, ctx.dim, ctx.group), None, None, None, None
+        idx, inside = ctx.saved_tensors
+        g = torch.where(inside[..., None], g.float(), 0.0)
+        full = g.new_zeros(ctx.shape, dtype=torch.float32).index_put_((idx,), g,
+                                                                       accumulate=True)
+        if ctx.group is not None:
+            full = reduce_scatter(full, ctx.dim, ctx.group)
+        return full, None, None, None, None
 
 
 def embed_rows(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The embedding rows of ``tokens`` in ``dtype``; a table sharded on
     ``data`` is gathered (in ``dtype``) first. A table whose vocab is on
     ``model`` looks up the tokens of its block (zero rows elsewhere) and sums
-    them over ``model``: one term of the sum is not zero, so the rows are
-    the unsharded lookup's, bit for bit."""
+    them over ``model`` (g: its gradient lands in the block's rows): one
+    term of the sum is not zero, so the rows are the unsharded lookup's,
+    bit for bit."""
     sh = sharding_of(table)
     if sh is not None and sh.tp_dim == 0 and tp_size() > 1:
-        w = table.to(dtype) if sh.dim is None else all_gather(table.to(dtype), sh.dim, sh.group)
-        idx = tokens.long() - sh.offset(0)
-        inside = (idx >= 0) & (idx < w.shape[0])
-        rows = w[idx.clamp(0, w.shape[0] - 1)]
-        return tp_all_reduce(torch.where(inside[..., None], rows, torch.zeros_like(rows)))
+        rows = _LookupRows.apply(table, tokens.long() - sh.offset(0), sh.dim,
+                                 None if sh.dim is None else sh.group, dtype)
+        return tp_all_reduce(rows)
     if sh is None or sh.dim is None:
         rows = table[tokens.long()]
         return rows if rows.dtype == dtype else rows.to(dtype)
-    return _GatherRows.apply(table, tokens.long(), sh.dim, sh.group, dtype)
+    return _LookupRows.apply(table, tokens.long(), sh.dim, sh.group, dtype)
 
 
 def tree_map(fn, tree):

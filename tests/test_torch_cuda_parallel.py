@@ -1,6 +1,7 @@
 """The port's distribution layer over two CUDA cards with NCCL: the train
-step, a sharded fleet, the int8 cross-pod sum and tensor-parallel serving
-(minitron-4b at full width on a model axis of 2) of
+step, a sharded fleet, the int8 cross-pod sum, tensor-parallel serving
+(minitron-4b at full width on a model axis of 2) and one tensor-parallel
+train step (minitron-4b at full width, 4 layers) of
 ``tests/torch_cuda_world.py``, started by ``torchrun`` with one rank per
 card, each held against the unsharded run on one card. Marked ``cuda``; it
 skips below two cards. Imports nothing of JAX:
@@ -24,17 +25,36 @@ pytestmark = pytest.mark.cuda
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def test_two_cards_train_step_fleet_and_cross_pod_sum(tmp_path):
+def _two_cards(tmp_path, *cases) -> dict:
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
     out = tmp_path / "world.json"
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
                         "--nproc_per_node", "2", str(ROOT / "tests" / "torch_cuda_world.py"),
-                        str(out)], capture_output=True, text=True, timeout=900, env=env)
+                        str(out), *cases], capture_output=True, text=True, timeout=900, env=env)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
-    result = json.loads(out.read_text())
+    return json.loads(out.read_text())
+
+
+def test_two_cards_train_step_fleet_and_cross_pod_sum(tmp_path):
+    result = _two_cards(tmp_path)
     assert result["world"] == 2 and "nccl" in result["backend"]
     assert result["train_f32"]["err_of_leaf_scale"]["params"] <= 1e-4
     assert result["fleet"]["within_rtol_1e-6"] and result["cross_pod"]["bit_equal"]
     assert result["tp"]["err_of_scale"] <= 1e-4 and result["tp"]["argmax_agreement"] == 1.0
+
+
+def test_two_cards_tensor_parallel_train_step(tmp_path):
+    """minitron-4b at 4 layers, one float32 train step in the tp style over
+    two NCCL ranks: each rank's blocks within 1e-4 of the leaf's scale of
+    the unsharded step on one card, f backward and g forward issued."""
+    result = _two_cards(tmp_path, "tp_train")
+    tp = result["tp_train"]
+    assert result["world"] == 2 and "nccl" in result["backend"]
+    assert tp["err_of_leaf_scale"] <= 1e-4 and tp["loss_rel_err"] <= 1e-5
+    # g after wo and w_down in 4 layers, the embedding rows and the
+    # cross-entropy's three; the remat recompute issues wo's again (it stops
+    # at the last tensor the backward saved, before w_down's)
+    assert tp["collectives"]["tp_all_reduce"] == 2 * 4 + 4 + 4
+    assert tp["collectives"]["tp_copy_bwd"] == 2 * 4 + 1

@@ -136,18 +136,19 @@ def test_constrain_act_is_the_identity():
         assert sharding.constrain_act(x, ("batch", None)) is x
 
 
-def test_model_axis_above_one_raises_on_execution():
-    """Serving executes on a model axis above 1 (tests/test_torch_tensor_parallel.py);
-    a train step there raises, naming the pending item, before it touches
-    the parameters."""
+@pytest.mark.parametrize("style", ["tp_sp", "fsdp"])
+def test_pending_styles_raise_in_the_train_step(style):
+    """A train step on a model axis above 1 runs in the tp style
+    (tests/test_torch_tp_train.py); tp_sp and fsdp there raise, naming
+    Queue 1 item 6c, before the step touches the parameters."""
     api = build_model(reduced(get_config("minitron-4b")), device="cpu")
     model = api.init(0)
     step = make_train_step(api, AdamWConfig(), total_steps=10)
     tokens = torch.zeros((2, 4), dtype=torch.int32)
     batch = {"tokens": tokens, "labels": tokens.long()}
     for sizes in ({"data": 1, "model": 2}, {"data": 2, "model": 4}):
-        with sharding.mesh_context(sizes, "tp"):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with sharding.mesh_context(sizes, style):
+            with pytest.raises(NotImplementedError, match=rf"{style} style.*item 6c"):
                 step(model, adamw_init(model), batch)
     assert not any(p.requires_grad for p in model.parameters())
 

@@ -23,7 +23,7 @@ the port's unsharded run and the JAX package's.
   * The log-sum-exp merge of a slot-split cache on the plain route, windowed
     layers included, against the unsharded attention; the plain version of
     the decode kernel's ``lse`` output; ``serve.main --model-parallel 2``;
-    the refusals of what a model axis above 1 does not run yet.
+    the refusals of the styles a model axis above 1 does not run yet.
 """
 from __future__ import annotations
 
@@ -140,16 +140,14 @@ def test_kv_layout_matches_jax(style):
         assert got == want, sizes
 
 
-def test_pending_families_and_styles_raise_on_a_model_axis_above_one():
-    for arch in ("zamba2-2.7b", "whisper-base"):
-        model = new_model(reduced(get_config(arch)), "meta")
-        with sharding.mesh_context({"data": 1, "model": 2}, "serve"):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-                sharding.shard_params(model, {"data": 1, "model": 2})
-    model = new_model(reduced(get_config("minitron-4b")), "meta")
+@pytest.mark.parametrize("arch", ["minitron-4b", "zamba2-2.7b", "whisper-base"])
+def test_pending_styles_raise_on_a_model_axis_above_one(arch):
+    """Serving on a model axis above 1 takes the serve and tp styles for
+    every family; tp_sp and fsdp there raise, naming Queue 1 item 6c."""
+    model = new_model(reduced(get_config(arch)), "meta")
     for style in ("fsdp", "tp_sp"):
         with sharding.mesh_context({"data": 1, "model": 2}, style):
-            with pytest.raises(NotImplementedError, match=style):
+            with pytest.raises(NotImplementedError, match=rf"{style} style.*item 6c"):
                 sharding.shard_params(model, {"data": 1, "model": 2})
 
 

@@ -1,6 +1,9 @@
 """One rank of the port's two-card check, started by ``torchrun``:
 
-    PYTHONPATH=src torchrun --standalone --nproc_per_node 2 tests/torch_cuda_world.py OUT.json
+    PYTHONPATH=src torchrun --standalone --nproc_per_node 2 tests/torch_cuda_world.py OUT.json [CASE ...]
+
+CASE names what runs (default: train_f32, train_bf16_remat, fleet,
+cross_pod, tp; ``tp_train`` is the tensor-parallel train step).
 
 Over a (2, 1) NCCL mesh (``make_host_mesh``, ``cuda:LOCAL_RANK``): one train
 step of reduced minitron-4b (float32, and bf16 with remat) on sharded
@@ -13,14 +16,20 @@ dequantised and summed in pod order, bit for bit; tensor-parallel serving
 over a (1, 2) mesh: minitron-4b at full width (bf16 weights from seed 0,
 float32 compute), six teacher-forced decode steps against the unsharded
 run on rank 0's card (1e-4 of scale, greedy tokens equal), with the
-collectives a step. Rank 0 writes what it measured to OUT.json; any failure
-raises, so the rank exits non-zero. Imports nothing of JAX.
+collectives a step; one tensor-parallel train step over a (1, 2) mesh in
+the tp style: minitron-4b at full width cut to 4 layers, float32, B 4 x
+128, each rank holding its blocks against the unsharded step on its own
+card (``chip_smoke.hold_train_blocks``: the loss 1e-5 relative, grad norm,
+moments and updated parameters 1e-4 of each leaf's scale). Rank 0 writes
+what it measured to OUT.json; any failure raises, so the rank exits
+non-zero. Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -151,17 +160,46 @@ def tp_case(dev) -> dict:
     return out
 
 
-def main(out_path: str) -> None:
+def tp_train_case(dev) -> dict:
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch import models
+    cfg = dataclasses.replace(get_config("minitron-4b"), n_layers=4, compute_dtype="float32")
+    mesh = make_host_mesh(model_parallel=2)
+    api = build_model(cfg, device=dev)
+    batch = chip_smoke.tp15_batch(torch, cfg, dev)
+    with sharding.mesh_context(mesh, "tp"):
+        model = api.init(0, mesh=mesh)
+        opt = adamw_init(model)
+        local = {k: sharding.local_rows(v, mesh) for k, v in batch.items()}
+        sharding.reset_comm_counts()
+        model, opt, met = make_train_step(api, AdamWConfig(), total_steps=10)(model, opt, local)
+        comm = {k: v for k, v in sharding.comm_counts.items() if not k.endswith("_bytes")}
+    shardings = {k: sharding.sharding_of(p) for k, p in model.named_parameters()}
+    worst = chip_smoke.hold_train_blocks(torch, models, api, batch, model, opt, met, shardings)
+    return {"loss": float(met["loss"]), "loss_rel_err": worst["loss_rel"], "collectives": comm,
+            "err_of_leaf_scale": max(worst[k] for k in ("grad_norm_rel", "m", "v_root",
+                                                        "params"))}
+
+
+CASES = {
+    "train_f32": lambda mesh, dev: train_case(mesh, dev, {}, 1e-4),
+    "train_bf16_remat": lambda mesh, dev: train_case(
+        mesh, dev, {"compute_dtype": "bfloat16", "remat": True}, 2e-2),
+    "fleet": fleet_case, "cross_pod": lambda mesh, dev: cross_pod_case(dev),
+    "tp": lambda mesh, dev: tp_case(dev), "tp_train": lambda mesh, dev: tp_train_case(dev),
+}
+
+
+def main(out_path: str, cases=("train_f32", "train_bf16_remat", "fleet", "cross_pod", "tp")
+         ) -> None:
     mesh = make_host_mesh()
     dev = local_device(mesh)
     torch.backends.cuda.matmul.allow_tf32 = False
     result = {"world": dist.get_world_size(), "backend": str(dist.get_backend()),
-              "device": torch.cuda.get_device_name(dev),
-              "train_f32": train_case(mesh, dev, {}, 1e-4),
-              "train_bf16_remat": train_case(mesh, dev, {"compute_dtype": "bfloat16",
-                                                         "remat": True}, 2e-2),
-              "fleet": fleet_case(mesh, dev), "cross_pod": cross_pod_case(dev),
-              "tp": tp_case(dev)}
+              "device": torch.cuda.get_device_name(dev)}
+    for name in cases:
+        result[name] = CASES[name](mesh, dev)
     dist.barrier()
     if dist.get_rank() == 0:
         with open(out_path, "w") as f:
@@ -170,4 +208,4 @@ def main(out_path: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], *([tuple(sys.argv[2:])] if len(sys.argv) > 2 else []))

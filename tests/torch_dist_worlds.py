@@ -176,7 +176,8 @@ def moe_dispatch(payload) -> dict:
 
 def tp_serving(cases) -> list:
     """Each case (dict: cfg fields, the JAX package's parameter tree as
-    numpy, mesh shape, style, forward tokens (and patches), decode tokens,
+    numpy, mesh shape, style, forward tokens (and patches or frames: an
+    encoder-decoder's cache is filled by ``prefill_cross``), decode tokens,
     cache length, a hidden state) on a (data, model) mesh: the port's model
     from ``bridge.lm_params_from_numpy`` sharded by ``shard_params``; the
     rank's rows of the forward's and every decode step's logits (whole
@@ -188,7 +189,7 @@ def tp_serving(cases) -> list:
     from repro_torch import bridge
     from repro_torch.configs import ArchConfig
     from repro_torch.launch.steps import make_serve_step
-    from repro_torch.models import build_model, moe, ssm, transformer
+    from repro_torch.models import build_model, encdec, moe, ssm, transformer
     from repro_torch.parallel import sharding
 
     out = []
@@ -214,16 +215,21 @@ def tp_serving(cases) -> list:
             res["init_blocks"] = {k: sharding.sharding_of(p).gather(p).numpy()
                                   for k, p in drawn.named_parameters()}
             del drawn
-            batch = {"tokens": rows(case["tokens"])}
-            if "patches" in case:
-                batch["patches"] = rows(case["patches"])
+            batch = {k: rows(case[k]) for k in ("tokens", "patches", "frames") if k in case}
+
+            def new_cache():
+                cache = api.init_cache(case["tokens"].shape[0], case["max_len"])
+                if "frames" in case:  # the cross-attention keys of each rank's block
+                    cache = encdec.prefill_cross(cfg, model, batch["frames"], cache)
+                return cache
+
             with moe.recording_routing() as log:
                 res["forward"] = api.forward(model, batch).numpy()
             res["routing"] = [(i.numpy(), kept.numpy()) for i, kept in log]
-            cache = api.init_cache(case["tokens"].shape[0], case["max_len"])
+            cache = new_cache()
             res["cache_shapes"] = {k: tuple(v.shape) for k, v in cache.items()
                                    if isinstance(v, torch.Tensor)}
-            res["cache_slots"] = {k: v for k, v in cache.items() if k.startswith("slots")}
+            res["cache_slots"] = {k: v for k, v in cache.items() if "slots" in k}
             steps = []
             for t in range(case["decode"].shape[1]):
                 sharding.reset_comm_counts()
@@ -233,7 +239,7 @@ def tp_serving(cases) -> list:
                 steps.append(logits.numpy())
             res["decode"] = np.stack(steps)
             step = make_serve_step(api)
-            cache = api.init_cache(case["tokens"].shape[0], case["max_len"])
+            cache = new_cache()
             tok, greedy = rows(case["decode"][:, :1]), []
             for _ in range(case["decode"].shape[1]):
                 tok, cache = step(model, cache, tok)
@@ -245,6 +251,93 @@ def tp_serving(cases) -> list:
             res["head_logits"] = (ssm._logits(cfg, model, hidden) if cfg.family == "ssm"
                                   else transformer.logits_of(cfg, model, hidden)).numpy()
         out.append(res)
+    return out
+
+
+def tp_train(cases) -> list:
+    """Each case (dict: cfg fields, the port's weights as numpy, the global
+    batch, mesh shape, optional ``save`` / ``restore`` snapshot directory)
+    on a (data, model) mesh in the tp style: the port's model sharded by
+    ``shard_params`` (restored from the snapshot's step 1 by
+    ``restore_sharded``, then one step, where ``restore`` is set), one
+    ``make_train_step`` on this rank's rows; the metrics, every leaf's
+    parameters and moments gathered whole, this rank's blocks of the leaves
+    (and of the fused leaves' parts) that every model rank holds whole,
+    and the collectives of the step (a snapshot of the state after it is
+    written where ``save`` is set)."""
+    from repro_torch import checkpoint
+    from repro_torch.configs import ArchConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model, new_model
+    from repro_torch.optim import AdamWConfig, AdamWState, adamw_init
+    from repro_torch.parallel import sharding
+
+    out = []
+    for case in cases:
+        mesh = init_device_mesh("cpu", case["mesh_shape"], mesh_dim_names=("data", "model"))
+        cfg = ArchConfig(**case["cfg"])
+        api = build_model(cfg, device="cpu")
+        model = new_model(cfg, "cpu")
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in case["weights"].items()})
+        with sharding.mesh_context(mesh, "tp"):
+            sharding.shard_params(model, mesh)
+            named = dict(model.named_parameters())
+            shs = {k: sharding.sharding_of(p) for k, p in named.items()}
+            opt = adamw_init(model)
+            tree_sh = {"params": shs, "opt": AdamWState(step=None, m=shs, v=shs)}
+            if case.get("restore"):
+                tree, _ = checkpoint.restore_sharded(case["restore"], 1,
+                                                     {"params": named, "opt": opt}, tree_sh)
+                checkpoint.load_into({"params": named, "opt": opt}, tree)
+            batch = {k: sharding.local_rows(torch.as_tensor(v), mesh)
+                     for k, v in case["batch"].items()}
+            sharding.reset_comm_counts()
+            model, opt, met = make_train_step(api, AdamWConfig(), total_steps=10)(
+                model, opt, batch)
+            comm = dict(sharding.comm_counts)
+            full = {key: {k: shs[k].gather(t).numpy() for k, t in tree.items()}
+                    for key, tree in (("params", named), ("m", opt.m), ("v", opt.v))}
+            if case.get("save"):
+                checkpoint.save(case["save"], int(opt.step), {"params": named, "opt": opt},
+                                shardings=tree_sh)
+
+        def whole(t, sh):
+            """The parts of this rank's block that every model rank holds."""
+            if sh.tp_dim is None:
+                return [t.detach().numpy()]
+            return [t.detach().narrow(sh.tp_dim, lo, hi - lo).numpy()
+                    for lo, hi in sh.tp_whole()]
+
+        out.append({
+            "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+            "tokens": float(met["tokens"]), **full, "comm": comm,
+            "tp_dims": {k: sh.tp_dim for k, sh in shs.items()},
+            "replicated": {key: {k: whole(t, shs[k]) for k, t in tree.items()}
+                           for key, tree in (("params", named), ("m", opt.m))},
+        })
+    return out
+
+
+def vocab_ce(cases) -> list:
+    """``weighted_cross_entropy`` of this rank's vocab block of each case's
+    logits (``vocab_parallel``; soft-capped first where ``cap`` is set) on
+    a (1, world) mesh: the loss and the gradient of this rank's block."""
+    from repro_torch.models import layers
+    from repro_torch.parallel import sharding
+    mesh = init_device_mesh("cpu", (1, dist.get_world_size()), mesh_dim_names=("data", "model"))
+    r, n = mesh.get_local_rank("model"), dist.get_world_size()
+    out = []
+    with sharding.mesh_context(mesh, "tp"):
+        for case in cases:
+            full = torch.as_tensor(case["logits"])
+            v = full.shape[-1] // n
+            block = full[..., r * v:(r + 1) * v].clone().requires_grad_(True)
+            logits = layers.softcap(block, case["cap"]) if case["cap"] else block
+            loss, _ = layers.weighted_cross_entropy(
+                logits, torch.as_tensor(case["labels"]), torch.as_tensor(case["weights"]),
+                vocab_parallel=True)
+            loss.backward()
+            out.append({"loss": float(loss), "grad": block.grad.numpy()})
     return out
 
 
@@ -373,4 +466,5 @@ def several(tasks) -> list:
 
 TASKS = {"int8_sum": int8_sum, "train_steps": train_steps, "moe_dispatch": moe_dispatch,
          "fleets": fleets, "train_main": train_main, "several": several,
-         "tp_serving": tp_serving, "serve_main": serve_main}
+         "tp_serving": tp_serving, "serve_main": serve_main, "tp_train": tp_train,
+         "vocab_ce": vocab_ce}
