@@ -140,10 +140,17 @@ Phases, each fatal on failure:
      minitron-4b at 4 of 32 layers, zamba2-2.7b at 6 and whisper-base, B 4
      x 128: in float32 each rank holds its blocks against the unsharded
      step on the card (loss 1e-5 relative; grad norm, moments and updated
-     parameters 1e-4 of each leaf's scale), then 3 bf16 steps: ms a step,
+     parameters 1e-4 of each leaf's scale), then 2 bf16 steps: ms a step,
      collectives of the forward and of the rest by kind, exact attention
      launches a step (the wgmma kernel through ``ops.KernelAttention`` at
      minitron-4b's 16 / 4 local heads), peak memory a rank.
+ 16. the tp_sp and fsdp styles on the same model axis of 2, in phase 15's
+     world: the train cells of 15 (b) under ``mesh_context(mesh, style)``
+     (tp_sp: each rank's block of positions between layers; fsdp: each
+     rank's half of the rows, every leaf gathered whole at its
+     use), held in float32 as 15 (b) holds them, then 2 bf16 steps each
+     with the same attention launches; minitron-4b's collectives of a step
+     exactly ``tp_train_comm``'s in all three styles.
 Phase 6 also holds the decode kernel's log-sum-exp output against its plain
 version (granite-20b's decode on one of phase 14's ranks, a row that sees
 no key, a rank's half of a 32,768-slot cache).
@@ -2548,7 +2555,7 @@ TP_STEPS = 6  # teacher-forced decode steps held against the unsharded run
 # Of scale: the two ranks' float32 partial sums meet in one more addition
 # than the unsharded products (measured on an H100: 1.2e-6 to 2.6e-6).
 TP_F32_TOL = 1e-4
-TP_TIMEOUT_S = 300
+TP_TIMEOUT_S = 480
 
 
 def tp_config(configs, arch: str, layers: int, compute_dtype: str = ""):
@@ -2627,11 +2634,12 @@ def tp_agreeing_rows(torch, got: dict, want: dict, cdt: str):
     return same.t().int().cumprod(dim=1).bool()
 
 
-def tp_worker(rank: int, world: int, work: str, cells, device: str, train_cells=()) -> None:
-    """One rank of phases 14 and 15 (a spawned process): a gloo group
-    through a FileStore under ``work``; per cell ``serve.main`` at
-    ``--model-parallel world`` with every launch count set to 0 just before
-    it and read just after, then ``tp_checks`` on this rank's blocks; per
+def tp_worker(rank: int, world: int, work: str, cells, device: str, train_cells=(),
+              train_styles=("tp",)) -> None:
+    """One rank of phases 14-16 (a spawned process): a gloo group through a
+    FileStore under ``work``; per cell ``serve.main`` at ``--model-parallel
+    world`` with every launch count set to 0 just before it and read just
+    after, then ``tp_checks`` on this rank's blocks; per train style and
     train cell ``tp_train_cell``; the results go to ``work/rank{rank}.pt``."""
     import torch
     import torch.distributed as dist
@@ -2662,12 +2670,13 @@ def tp_worker(rank: int, world: int, work: str, cells, device: str, train_cells=
                 logits = tp_checks(torch, configs, models, sharding, arch, layers, device, mesh)
             out[arch] = {"summary": summary, "launches": launches, "serve_peak_gib": peak,
                          "logits": logits}
-        for arch, layers in train_cells:
-            mesh = make_host_mesh(model_parallel=world, device=device)
-            out[f"train {arch}"] = r = tp_train_cell(torch, models, configs, sharding, kernels,
-                                                     arch, layers, device, mesh)
-            print(f"phase 15 rank {rank} train {arch}: stages (s) {json.dumps(r['stage_s'])}",
-                  flush=True)
+        for style in train_styles:
+            for arch, layers in train_cells:
+                mesh = make_host_mesh(model_parallel=world, device=device)
+                out[f"train {style} {arch}"] = r = tp_train_cell(
+                    torch, models, configs, sharding, kernels, arch, layers, device, mesh, style)
+                print(f"phase {train_phase(style)} rank {rank} train {style} {arch}: stages (s) "
+                      f"{json.dumps(r['stage_s'])}", flush=True)
         torch.save(out, Path(work) / f"rank{rank}.pt")
         dist.barrier()
     finally:
@@ -2719,7 +2728,8 @@ TP15_CELLS = (("zamba2-2.7b", 12), ("whisper-base", 0))
 # / kv heads: the wgmma kernel in bf16), zamba2-2.7b at 6 (one group: the
 # SIMT kernel at hd 80) and whisper-base whole; B 4 x 128 each.
 TP15_TRAIN_CELLS = (("minitron-4b", 4), ("zamba2-2.7b", 6), ("whisper-base", 0))
-TP15_BATCH, TP15_SEQ, TP15_BF16_STEPS = 4, 128, 3
+# Two bf16 steps a cell and style (the first one warms up).
+TP15_BATCH, TP15_SEQ, TP15_BF16_STEPS = 4, 128, 2
 # 1e3 x AdamW's eps: a gradient below it sets a first update lr g / (|g| +
 # eps) that moves by 1e-3 of its ulps' error and more (``hold_train_blocks``).
 TP15_GRAD_FLOOR = 1e-5
@@ -2729,6 +2739,39 @@ TP15_GRAD_FLOOR = 1e-5
 # keys) on the SIMT kernel, its bf16 decoder self-attention (6) on wgmma.
 TP15_TRAIN_LAUNCHES = {"minitron-4b": attn_counts(wgmma=8), "zamba2-2.7b": attn_counts(simt=2),
                        "whisper-base": attn_counts(simt=24, wgmma=12)}
+# Phase 16: the same train cells in the tp_sp and fsdp styles, in phase 15's
+# world; the same attention launches (fsdp: a rank runs every head of half
+# the rows).
+TP16_STYLES = ("tp_sp", "fsdp")
+
+
+def train_phase(style: str) -> int:
+    return 15 if style == "tp" else 16
+
+
+def tp_train_comm(style: str, n_layers: int) -> dict:
+    """Collectives of one train step of minitron-4b at ``n_layers`` with
+    remat on a (1, 2) mesh, (forward through the loss, the rest) by kind
+    (``tests/test_torch_tp_styles.py`` holds the same counts on the CPU):
+    L + 2 gathers of weights forward (a layer's, the embedding's, the
+    head's), L more in the recompute, L + 2 reduce-scatters back. tp: 2L +
+    4 g forward (wo, w_down, the embedding rows, the CE's 3) and L in the
+    recompute (wo's), 2L + 1 f backward; all-reduces: the denominator, the
+    loss, 3 norms, the global norm's 2. tp_sp adds L + 1 carry gathers
+    forward (a layer's, the final norm's), L in the recompute, and L + 1
+    split gathers back. fsdp has no g, f or carry collective, and every
+    all-reduce runs over data and model."""
+    n = n_layers
+    if style == "fsdp":
+        return {"forward": {"all_gather": n + 2, "all_reduce": 2},
+                "rest": {"all_gather": n, "reduce_scatter": n + 2, "all_reduce": 10}}
+    fwd = {"tp_all_reduce": 2 * n + 4, "all_gather": n + 2, "all_reduce": 1}
+    rest = {"tp_all_reduce": n, "all_gather": n, "tp_copy_bwd": 2 * n + 1,
+            "reduce_scatter": n + 2, "all_reduce": 6}
+    if style == "tp_sp":
+        fwd["seq_gather"] = n + 1
+        rest.update(seq_gather=n, seq_split_bwd=n + 1)
+    return {"forward": fwd, "rest": rest}
 
 
 def tp15_batch(torch, cfg, device) -> dict:
@@ -2803,14 +2846,16 @@ def hold_train_blocks(torch, models, api, batch, model, opt, met, shardings,
 
 
 def tp_train_cell(torch, models, configs, sharding, kernels, arch: str, layers: int, device,
-                  mesh) -> dict:
-    """One rank's train cell of phase 15 under ``mesh_context(mesh, "tp")``:
-    one float32 step of the sharded model (weights from seed 0 drawn as
-    blocks), then each rank in turn runs the unsharded step on the card and
-    holds its blocks (``hold_train_blocks``); then ``TP15_BF16_STEPS`` bf16
-    steps of a fresh sharded model: ms a step, collectives of the forward
-    (through the loss) and of the rest of each step by kind, exact
-    attention launches a step, peak memory."""
+                  mesh, style: str = "tp") -> dict:
+    """One rank's train cell of phase 15 (``style`` tp) or 16 (tp_sp, fsdp)
+    under ``mesh_context(mesh, style)``: one float32 step of the sharded
+    model (weights from seed 0 drawn as blocks) on this rank's rows of the
+    global batch, then each rank in turn runs the unsharded step on the
+    card and holds its blocks (``hold_train_blocks``); then
+    ``TP15_BF16_STEPS`` bf16 steps of a fresh sharded
+    model: ms a step, collectives of the forward (through the loss) and of
+    the rest of each step by kind (minitron-4b's exactly
+    ``tp_train_comm``'s), exact attention launches a step, peak memory."""
     import torch.distributed as dist
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -2821,8 +2866,9 @@ def tp_train_cell(torch, models, configs, sharding, kernels, arch: str, layers: 
 
     def mark(what: str) -> None:
         out.setdefault("stage_s", {})[what] = time.perf_counter() - t0
+    phase = train_phase(style)
     api = models.build_model(dataclasses.replace(base, compute_dtype="float32"), device=device)
-    with sharding.mesh_context(mesh, "tp"):
+    with sharding.mesh_context(mesh, style):
         model = api.init(0, mesh=mesh)
         opt = adamw_init(model)
         local = {k: sharding.local_rows(v, mesh) for k, v in batch.items()}
@@ -2833,6 +2879,12 @@ def tp_train_cell(torch, models, configs, sharding, kernels, arch: str, layers: 
         float(met["loss"])
         mark("f32 step")
     shardings = {k: sharding.sharding_of(p) for k, p in model.named_parameters()}
+    # Each rank's cached blocks go back to the card before any rank runs the
+    # unsharded step: fsdp's float32 step peaks on whole float32 tables,
+    # which a rank waiting its turn would otherwise keep (at minitron-4b's
+    # 256,000 x 3,072 the other rank's unsharded step then runs out of
+    # memory).
+    torch.cuda.empty_cache()
     for r in range(dist.get_world_size()):
         dist.barrier()
         if r == dist.get_rank():
@@ -2856,7 +2908,7 @@ def tp_train_cell(torch, models, configs, sharding, kernels, arch: str, layers: 
     api = dataclasses.replace(api, loss=loss)
     step = make_train_step(api, AdamWConfig(), total_steps=10)
     ms, comm, launches, losses = [], [], [], []
-    with sharding.mesh_context(mesh, "tp"):
+    with sharding.mesh_context(mesh, style):
         model = api.init(0, mesh=mesh)
         opt = adamw_init(model)
         torch.cuda.synchronize()
@@ -2877,9 +2929,12 @@ def tp_train_cell(torch, models, configs, sharding, kernels, arch: str, layers: 
     want = TP15_TRAIN_LAUNCHES[arch]
     for got in launches:
         if got != {k: want.get(k, 0) for k in got}:
-            fail(f"phase 15 train {arch}: bf16 step launches {got}, expected {want}")
+            fail(f"phase {phase} train {style} {arch}: bf16 step launches {got}, expected {want}")
     if not all(math.isfinite(x) for x in losses):
-        fail(f"phase 15 train {arch}: bf16 losses {losses}")
+        fail(f"phase {phase} train {style} {arch}: bf16 losses {losses}")
+    if arch == "minitron-4b" and any(c != tp_train_comm(style, base.n_layers) for c in comm):
+        fail(f"phase {phase} train {style} {arch}: collectives {comm}, expected "
+             f"{tp_train_comm(style, base.n_layers)}")
     out.update(bf16_ms=ms, bf16_losses=losses, bf16_comm=comm[-1], bf16_launches=launches[-1],
                bf16_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     del model, opt
@@ -2888,7 +2943,7 @@ def tp_train_cell(torch, models, configs, sharding, kernels, arch: str, layers: 
 
 
 def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cuda:0",
-             train_cells=(), phase: int = 14) -> dict:
+             train_cells=(), phase: int = 14, train_styles=("tp",)) -> dict:
     """Phase 14: a world of two gloo ranks on the one card (NCCL refuses two
     ranks on one device), spawned after the main process frees its cached
     memory; each serves every cell through ``serve.main`` at model = 2 and
@@ -2899,7 +2954,8 @@ def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cud
     up to the first step where the two sides' bf16 roundings pick another
     expert (a near tie of the router; the row's cache differs from there),
     the whole gap and the argmax agreement reported beside; exact launches
-    of the serve run on each rank; exact collectives a step."""
+    of the serve run on each rank; exact collectives a step. Each rank then
+    runs the train cells in each of ``train_styles`` (``tp_train_cell``)."""
     import gc
     import shutil
     import torch.multiprocessing as mp
@@ -2911,7 +2967,8 @@ def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cud
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     t0 = time.perf_counter()
-    ctx = mp.start_processes(tp_worker, args=(TP_WORLD, str(work), cells, device, train_cells),
+    ctx = mp.start_processes(tp_worker, args=(TP_WORLD, str(work), cells, device, train_cells,
+                                              train_styles),
                              nprocs=TP_WORLD, join=False, start_method="spawn")
     try:
         deadline = time.monotonic() + TP_TIMEOUT_S
@@ -2931,7 +2988,8 @@ def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cud
     shutil.rmtree(work, ignore_errors=True)
     out = {"world": TP_WORLD, "backend": ranks[0]["backend"], "device": device,
            "world_s": time.perf_counter() - t0, "cells": {},
-           "train": {arch: [r[f"train {arch}"] for r in ranks] for arch, _ in train_cells}}
+           "train": {style: {arch: [r[f"train {style} {arch}"] for r in ranks]
+                             for arch, _ in train_cells} for style in train_styles}}
     steps = TP_PROMPT + TP_GEN
     for arch, layers in cells:
         r0 = ranks[0][arch]
@@ -3270,7 +3328,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     tp15 = phase_tp(torch, serve, models, configs, all_kernels, cells=TP15_CELLS,
-                    train_cells=TP15_TRAIN_CELLS, phase=15)
+                    train_cells=TP15_TRAIN_CELLS, phase=15, train_styles=("tp",) + TP16_STYLES)
     print(f"phase 15 (a) hybrid and encoder-decoder serving: {tp15['world']} {tp15['backend']} "
           f"ranks on {tp15['device']}, mesh data 1 x model {tp15['world']} [{smi}]")
     for arch, r in tp15["cells"].items():
@@ -3282,17 +3340,20 @@ def main(argv=None) -> int:
               f"{json.dumps(r['argmax_agreement'])}, serve peak GiB per rank "
               f"{json.dumps([round(x, 3) for x in r['serve_peak_gib_per_rank']])} (unsharded "
               f"{r['unsharded_serve_peak_gib']:.3f}), launches {json.dumps(r['launches'])}")
-    for arch, ranks in tp15["train"].items():
+    for style, arch, ranks in ((s, a, rs) for s, cells in tp15["train"].items()
+                               for a, rs in cells.items()):
         r = ranks[0]
-        print(f"phase 15 (b) train {arch} ({r['n_layers']} layers, B {TP15_BATCH} x {TP15_SEQ}, "
-              f"tp style): float32 step held on each rank against the unsharded step "
+        label = "phase 15 (b)" if style == "tp" else "phase 16"
+        print(f"{label} train {arch} ({r['n_layers']} layers, B {TP15_BATCH} x {TP15_SEQ}, "
+              f"{style} style): float32 step held on each rank against the unsharded step "
               f"{json.dumps([x['f32_held'] for x in ranks])}, launches "
               f"{json.dumps(r['f32_launches'])}; bf16 ms per step "
               f"{json.dumps([round(x, 3) for x in r['bf16_ms']])}, losses "
               f"{json.dumps(r['bf16_losses'])}, collectives of the last step "
               f"{json.dumps(r['bf16_comm'])}, launches {json.dumps(r['bf16_launches'])}, peak "
               f"GiB per rank {json.dumps([round(x['bf16_peak_gib'], 3) for x in ranks])} [{smi}]")
-    print(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    print(f"phases 15-16 took {time.perf_counter() - t0:.1f} s (phase 16's train cells in "
+          f"phase 15's world)")
 
     for mod in ("jax", "repro"):
         if mod in sys.modules:
@@ -3355,8 +3416,9 @@ def main(argv=None) -> int:
         "launches_serve": simt_count(mini["serve_launches"]),
         "launches_families": family_launches(simt_count),
         "launches_per_decode_step": simt_count(mini["step_launches"]),
-        "launches_tp15_train_step": {arch: simt_count(ranks[0]["bf16_launches"])
-                                     for arch, ranks in tp15["train"].items()},
+        "launches_tp_train_step": {
+            style: {arch: simt_count(ranks[0]["bf16_launches"]) for arch, ranks in cells.items()}
+            for style, cells in tp15["train"].items()},
         "max_abs_err": fa_err["simt"],
         "ms": fwd["device_ms"], "device_ms": fwd["device_ms"], "event_ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -3421,8 +3483,9 @@ def main(argv=None) -> int:
             "library_forward_backward_ms", "forward_err_of_scale", "grads_bit_equal")},
             "launches": full["launches"]["flash_attention_wgmma"],
             "launches_per_step": full["wgmma_per_step"],
-            "launches_tp15_step": {arch: ranks[0]["bf16_launches"].get(
-                "flash_attention_wgmma", 0) for arch, ranks in tp15["train"].items()}},
+            "launches_tp_step": {style: {arch: ranks[0]["bf16_launches"].get(
+                "flash_attention_wgmma", 0) for arch, ranks in cells.items()}
+                for style, cells in tp15["train"].items()}},
     })
     lse = lse_res["lse_seq_bf16"]
     line.append({

@@ -5,7 +5,8 @@ One ``ArchConfig`` per architecture lives in ``configs/<id>.py`` with the
 exact published numbers (the JAX package's ten); ``reduced()`` derives the
 CPU smoke-test variant of the same family. ``register``/``get_config`` back
 the ``--arch`` selector of ``launch/serve.py``; ``get_config`` refuses an
-unknown name.
+unknown name. ``SHAPES`` is the assigned input-shape grid (shared by every
+LM family) and ``LONG_CONTEXT_OK`` the archs allowed its ``long_500k``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,19 @@ import dataclasses
 import importlib
 
 _REGISTRY: dict[str, "ArchConfig"] = {}
+
+# Assigned input shapes: name -> (seq_len, global_batch, kind)
+SHAPES: dict[str, tuple[int, int, str]] = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+# long_500k needs sub-quadratic attention: windowed or local / global
+# attention, or state-space layers.
+LONG_CONTEXT_OK = {"gemma2-27b", "mixtral-8x22b", "mixtral-8x7b",
+                   "zamba2-2.7b", "falcon-mamba-7b"}
 
 ARCH_IDS = [
     "qwen2_5_32b", "minitron_4b", "granite_20b", "gemma2_27b",

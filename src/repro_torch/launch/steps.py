@@ -19,8 +19,7 @@ from ..models import ModelApi
 from ..models.layers import loss_denominator
 from ..optim import AdamWConfig, AdamWState, cosine_schedule
 from ..optim.adamw import adamw_update_
-from ..parallel.sharding import (TP_STYLES, all_reduce_, batch_groups, current_mesh,
-                                 current_style, model_axis, sharding_of, tp_style_pending)
+from ..parallel.sharding import all_reduce_, batch_groups, current_mesh, gather_axes, sharding_of
 
 
 def make_train_step(model: ModelApi, opt_cfg: AdamWConfig, total_steps: int = 10_000,
@@ -40,23 +39,22 @@ def make_train_step(model: ModelApi, opt_cfg: AdamWConfig, total_steps: int = 10
     (``parallel.shard_params``) and ``batch`` this rank's rows: the loss
     denominator sum(valid * w) is summed over the batch axes before the
     forward and divides each rank's sum(w * nll); a sharded leaf's gradient
-    is reduce-scattered over ``data`` by its gather's backward and summed
-    over the other batch axes, a replicated leaf's is summed over every
-    batch axis; the reported loss is the global one. On a ``model`` axis
-    above 1 (the ``tp`` and ``serve`` styles) each ``model`` rank computes
-    the same loss from the same rows: a leaf blocked on ``model`` gets its
-    block's gradient, and a replicated one its whole gradient, equal on
-    every ``model`` rank, by the f / g pair in the forward
-    (``parallel.sharding``), so nothing is reduced over ``model``; the
-    cross-entropy runs over the vocab blocks. The ``tp_sp`` and ``fsdp``
-    styles there raise (``sharding.tp_style_pending``)."""
+    is reduce-scattered over its own axes by its gather's backward
+    (``sharding.gather_axes``: ``data``; ``data`` and ``model`` under
+    ``fsdp``) and summed over the other batch axes, a replicated leaf's is
+    summed over every batch axis; the reported loss is the global one. On
+    a ``model`` axis above 1 in the ``tp``, ``tp_sp`` and ``serve`` styles
+    each ``model`` rank computes the same loss from the same rows: a leaf
+    blocked on ``model`` gets its block's gradient, and a replicated one
+    its whole gradient, equal on every ``model`` rank, by the f / g pair in
+    the forward (``parallel.sharding``), so nothing is reduced over
+    ``model``; the cross-entropy runs over the vocab blocks. Under
+    ``fsdp`` ``model`` is a batch axis like ``data``."""
     if warmup_steps < 0:
         warmup_steps = max(min(100, total_steps // 10), 1)
 
     def train_step(params, opt_state: AdamWState, batch):
         mesh = current_mesh()
-        if model_axis(mesh) > 1 and current_style() not in TP_STYLES:
-            raise NotImplementedError(tp_style_pending(current_style()))
         params.requires_grad_(True)
         named = dict(params.named_parameters())
         if mesh is not None:
@@ -68,9 +66,7 @@ def make_train_step(model: ModelApi, opt_cfg: AdamWConfig, total_steps: int = 10
         if mesh is not None:
             for k, g in grads.items():
                 g = grads[k] = g.contiguous()
-                sh = sharding_of(named[k])
-                sharded = sh is not None and sh.dim is not None
-                all_reduce_(g, batch_groups(mesh, skip=("data",) if sharded else ()))
+                all_reduce_(g, batch_groups(mesh, skip=gather_axes(sharding_of(named[k]))))
             all_reduce_(loss, batch_groups(mesh))
         lr_scale = cosine_schedule(opt_state.step, total_steps, warmup_steps)
         opt_state, om = adamw_update_(named, grads, opt_state, opt_cfg, lr_scale)

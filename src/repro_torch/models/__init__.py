@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from ..parallel.sharding import empty_blocks
+from ..parallel.sharding import check_decode, current_mesh, empty_blocks
 from . import encdec, hybrid, ssm, transformer, vlm
 from .layers import vocab_parallel, weighted_cross_entropy
 
@@ -121,11 +121,14 @@ def build_model(cfg: ArchConfig, impl: str = "auto", device=None) -> ModelApi:
             return mod.forward(cfg, model, batch["tokens"], impl=impl)
         return mod.forward(cfg, model, batch["tokens"], batch[extra], impl=impl)
 
+    def decode_step(model, cache, tokens):
+        check_decode(current_mesh())
+        return mod.decode_step(cfg, model, cache, tokens, impl=impl)
+
     return ModelApi(
         cfg=cfg, device=dev, init=init, forward=forward, loss=_lm_loss(cfg, forward),
         init_cache=lambda bs, max_len, **kw: mod.init_cache(cfg, bs, max_len, device=dev, **kw),
-        decode_step=lambda model, cache, tokens: mod.decode_step(cfg, model, cache, tokens,
-                                                                 impl=impl),
+        decode_step=decode_step,
     )
 
 

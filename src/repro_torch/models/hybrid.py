@@ -136,7 +136,7 @@ def forward(cfg: ArchConfig, model: HybridLM, tokens: torch.Tensor,
 
     x = L.apply_layers(cfg, model.blocks, x,
                        lambda x, p, layer: ssm.mamba2_block(cfg, x, p, impl=impl)[0],
-                       group=cfg.hybrid_attn_every, group_end=shared)
+                       group=cfg.hybrid_attn_every, group_end=shared, seq_carry=True)
     return logits_of(cfg, model, x)
 
 

@@ -13,6 +13,14 @@ block and takes the cross-entropy over the blocks (``weighted_cross_entropy``:
 three small all-reduces, the (B, S, V) logits never gathered). A decode
 cache is allocated as ``launch.specs.cache_pspecs`` places it
 (``alloc_cache``).
+
+The other styles (``parallel.sharding``): under ``tp_sp`` the layers run
+as under ``tp`` and the carry between them is each ``model`` rank's block
+of positions (``apply_layers``); under ``fsdp`` every leaf is gathered whole
+at its use (``cast_params``, ``weight``), ``tp_rank()`` is 0 and
+``tp_size()`` 1, so ``local_counts`` reports no block and the f / g pair,
+the vocab-parallel lookup and the vocab-parallel cross-entropy take their
+unsharded forms by themselves.
 """
 from __future__ import annotations
 
@@ -28,8 +36,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from ..parallel.sharding import (_tp_reduce_, axis_sizes, current_mesh, embed_rows,
-                                 gather_fsdp, gather_params, sharding_of, tp_all_gather,
+from ..parallel.sharding import (_tp_reduce_, axis_sizes, check_decode, current_mesh,
+                                 embed_rows, gather_fsdp, gather_params, seq_gather,
+                                 seq_parallel, seq_split, sharding_of, tp_all_gather,
                                  tp_all_reduce, tp_copy, tp_rank)
 
 
@@ -67,8 +76,10 @@ def cast_params(p: dict[str, torch.Tensor], dtype: torch.dtype,
     region under remat, so no whole-model copy in ``dtype`` is held; the
     cast's backward gives the float32 gradient of the cast parameters.
     The leaves with a sharding in ``shardings`` (name -> the layer view's
-    ``Sharding``) are then gathered whole (``gather_params``: one collective
-    a layer, the cast type on the wire, the gradients reduce-scattered)."""
+    ``Sharding``) are then gathered over ``data`` (over ``data`` and
+    ``model`` under ``fsdp``: ``gather_params``, one collective a layer for
+    each set of axes, the cast type on the wire, the gradients
+    reduce-scattered)."""
     return gather_params({k: cast(v, dtype) for k, v in p.items()}, shardings or {})
 
 
@@ -80,8 +91,9 @@ def layer_shardings(blocks, stacked: bool = True) -> dict:
 
 
 def weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """A top-level weight (head, shared block) in ``dtype``, its ``data``
-    shard gathered; a ``model`` block stays this rank's."""
+    """A top-level weight (head, tied embedding) in ``dtype``, its ``data``
+    shard gathered; a ``model`` block stays this rank's, except under
+    ``fsdp``, which gathers it too."""
     return gather_fsdp(cast(w, dtype), sharding_of(w))
 
 
@@ -208,8 +220,10 @@ def alloc_cache(cfg, leaves: dict, batch: int, device) -> dict:
     value)) of global batch ``batch``: whole without a mesh; under a live
     mesh each rank's block as ``launch.specs.cache_pspecs`` places it, and
     for every key leaf whose slots are split over ``model`` its global slot
-    count (``_K_LEAF``)."""
+    count (``_K_LEAF``). Raises under ``fsdp`` on a ``model`` axis above 1
+    (``sharding.check_decode``)."""
     mesh = current_mesh()
+    check_decode(mesh)
     if mesh is None or not hasattr(mesh, "get_group"):
         return {k: torch.full(shape, fill, dtype=dt, device=device)
                 for k, (shape, dt, fill) in leaves.items()}
@@ -230,7 +244,7 @@ def alloc_cache(cfg, leaves: dict, batch: int, device) -> dict:
 
 
 def apply_layers(cfg, blocks, x: torch.Tensor, layer_fn: Callable, group: int = 1,
-                 group_end: Optional[Callable] = None) -> torch.Tensor:
+                 group_end: Optional[Callable] = None, seq_carry: bool = False) -> torch.Tensor:
     """x through every layer of ``blocks`` (a dict of stacked (L, ...)
     leaves): ``layer_fn(x, p, layer)`` gets the layer's parameters cast to
     the compute type, and ``group_end(x, g)``, where given, runs after each
@@ -239,30 +253,45 @@ def apply_layers(cfg, blocks, x: torch.Tensor, layer_fn: Callable, group: int = 
     forward is recorded for a backward and ``cfg.remat`` is set, each group
     is recomputed in the backward (``torch.utils.checkpoint``, as the JAX
     package's ``jax.checkpoint`` of the scanned body), the casts and the
-    gathers included."""
+    gathers included.
+
+    ``seq_carry``: the family's block output is the JAX package's
+    ``("batch", "seq", None)``. Under ``tp_sp`` on a ``model`` axis above 1
+    that divides the positions (``sharding.seq_parallel``), x is split to
+    this rank's block of positions before the first group; each group
+    all-gathers it first (``seq_gather``) and keeps this rank's block of its
+    output last (``seq_split``), so a recomputed group saves only the block;
+    the output is gathered whole again for the final norm. Elsewhere the
+    carry stays whole."""
     cdt = compute_dtype(cfg)
     # recorded for a backward: grad mode on and a parameter that requires
     # grad (serving models have none)
     remat = cfg.remat and torch.is_grad_enabled() and any(
         p.requires_grad for p in blocks.values())
+    seq = seq_carry and seq_parallel(x.shape[1])
     per_layer = unbind_layers(blocks)
     shardings = layer_shardings(blocks)
     names = tuple(per_layer[0])
+    if seq:
+        x = seq_split(x)
     for g0 in range(0, len(per_layer), group):
         layers = per_layer[g0:g0 + group]
 
         def run(x, *leaves, g0=g0, n=len(layers)):
+            if seq:
+                x = seq_gather(x)
             for i in range(n):
                 p = dict(zip(names, leaves[i * len(names):(i + 1) * len(names)]))
                 x = layer_fn(x, cast_params(p, cdt, shardings), g0 + i)
-            return x if group_end is None else group_end(x, g0 // group)
+            x = x if group_end is None else group_end(x, g0 // group)
+            return seq_split(x) if seq else x
 
         leaves = [v for p in layers for v in p.values()]
         if remat:
             x = torch.utils.checkpoint.checkpoint(run, x, *leaves, use_reentrant=False)
         else:
             x = run(x, *leaves)
-    return x
+    return seq_gather(x) if seq else x
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:

@@ -259,7 +259,7 @@ def forward(cfg: ArchConfig, model: MambaLM, tokens: torch.Tensor,
     recorded forward raises there (``kernels/mamba_scan/ops.py``)."""
     x = L.embed_rows(model.embed, tokens, L.compute_dtype(cfg))
     x = L.apply_layers(cfg, model.blocks, x,
-                       lambda x, p, layer: mamba1_block(cfg, x, p, impl=impl)[0])
+                       lambda x, p, layer: mamba1_block(cfg, x, p, impl=impl)[0], seq_carry=True)
     return _logits(cfg, model, x)
 
 

@@ -296,7 +296,7 @@ def forward(cfg: ArchConfig, model: DenseLM, tokens: torch.Tensor,
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     specs = attn_specs(cfg, prefix_len)
     x = L.apply_layers(cfg, model.blocks, x, lambda x, p, layer: block_apply(
-        cfg, x, p, positions, specs[layer % len(specs)], impl=impl))
+        cfg, x, p, positions, specs[layer % len(specs)], impl=impl), seq_carry=True)
     return logits_of(cfg, model, x)
 
 

@@ -23,18 +23,23 @@ scheduler's x / y / z decisions set the rows and sample weights of each
 rank's batch, and the gradient reduction across the ranks is eq. 15's
 |D_j|-weighted aggregation (``launch/steps.py``).
 
-Execution covers meshes whose ``model`` axis has size 1, in every style,
-and a larger ``model`` axis in the ``serve`` and ``tp`` styles for every
-family, serving and training: each rank keeps its block of every leaf on
-both axes (``Sharding``), a product whose contracting dim is on ``model``
-ends in one ``tp_all_reduce``, and serving gathers the logits along the
-vocab (``tp_all_gather``). Under autograd these are Megatron's pair: g
+Every style executes on every mesh, for every family. In ``serve`` and
+``tp`` each rank keeps its block of every leaf on both axes (``Sharding``),
+a product whose contracting dim is on ``model`` ends in one
+``tp_all_reduce``, and serving gathers the logits along the vocab
+(``tp_all_gather``). Under autograd these are Megatron's pair: g
 (``tp_all_reduce``: all-reduce forward, identity backward) and f
 (``tp_copy``: identity forward, all-reduce of the gradient backward), put
 on every replicated activation that rank-local work consumes, so a
 replicated leaf's gradient comes out whole and equal on every ``model``
-rank. The ``fsdp`` / ``tp_sp`` styles on such a mesh raise (ROADMAP.md,
-Queue 1 item 6c).
+rank. ``tp_sp`` is ``tp`` inside a layer, and between layers each
+``model`` rank keeps its block of the positions (``seq_split`` /
+``seq_gather``, placed by ``models.layers.apply_layers``). ``fsdp`` has no
+tensor parallelism: the batch goes over every axis, ``tp_size()`` is 1, and
+each leaf is gathered whole over ``data`` and ``model`` at its use
+(``gather_params``); the blocks stored stay those of the rule table. A
+decode under ``fsdp`` on a ``model`` axis above 1 raises
+(``check_decode``).
 """
 from __future__ import annotations
 
@@ -56,16 +61,6 @@ _MESH: Any = None
 #   "fsdp"  batch over every axis; weights gathered whole per layer (ZeRO-3)
 #   "serve" weights TP-sharded on model and replicated over data
 _STYLE: str = "tp"
-
-# Styles that execute on a model axis above 1 (every family does).
-TP_STYLES = ("serve", "tp")
-
-
-def tp_style_pending(style: str) -> str:
-    """The refusal of a style that does not run on a model axis above 1."""
-    return (f"the {style} style on a model axis above 1 (tp_sp: sequence-sharded remat "
-            f"carries; fsdp: whole-layer gathers over every axis) is not ported "
-            f"(ROADMAP.md, Queue 1 item 6c); it takes {TP_STYLES}")
 
 # Collectives issued by this package since the last reset, and their bytes
 # (each rank's payload: what it sends into an all-gather, its full input
@@ -228,11 +223,16 @@ def model_axis(mesh) -> int:
     return axis_sizes(mesh).get("model", 1) if mesh is not None else 1
 
 
-def _check_executable(mesh) -> None:
-    """Raises where a ``model`` axis above 1 meets a style it does not run
-    yet (another than ``TP_STYLES``)."""
-    if model_axis(mesh) > 1 and _STYLE not in TP_STYLES:
-        raise NotImplementedError(tp_style_pending(_STYLE))
+def check_decode(mesh) -> None:
+    """Raises for a decode (or its cache) under ``fsdp`` on a ``model``
+    axis above 1 (``mesh``: a ``DeviceMesh``, a mapping of axis sizes or
+    ``None``), which has no placement to port."""
+    if _STYLE == "fsdp" and model_axis(mesh) > 1:
+        raise NotImplementedError(
+            "a decode under the fsdp style on a model axis above 1 has no placement: the JAX "
+            "package's cache_pspecs puts a cache's slots on ('data', 'model') and its kv heads "
+            "(or a block of its slots) on 'model' again, a duplicate 'model' placement that "
+            "JAX refuses (DuplicateSpecError); fsdp runs the forward and the train step")
 
 
 def _coord(mesh, axes) -> tuple[int, int]:
@@ -277,14 +277,6 @@ class Sharding:
     def tp_dim(self) -> Optional[int]:
         """The dim that holds the ``model`` block (``None``: whole)."""
         return self.spec.index("model") if "model" in self.spec else None
-
-    @property
-    def group(self):
-        return self.mesh.get_group("data")
-
-    @property
-    def tp_group(self):
-        return self.mesh.get_group("model")
 
     def segments(self, n: int) -> list[tuple[int, int, bool]]:
         """(global size, size on a rank, blocked) of each part of the
@@ -352,24 +344,14 @@ class Sharding:
         return out
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
-        """The global array from every rank's block (collectives over the
-        ``data`` and ``model`` axes; no autograd)."""
-        out = local.detach()
-        if self.dim is not None:
-            out = all_gather(out, self.dim, self.group)
-        if self.tp_dim is not None:
-            d, n = self.tp_dim, dist.get_world_size(self.tp_group)
-            out = all_gather(out, d, self.tp_group)  # every rank's parts, rank by rank
-            segs = self.segments(n)
-            if len(segs) > 1:
-                width = sum(local for _, local, _ in segs)
-                pieces, at = [], 0
-                for _, size, blocked in segs:
-                    ranks = range(n) if blocked else range(1)
-                    pieces += [out.narrow(d, r * width + at, size) for r in ranks]
-                    at += size
-                out = torch.cat(pieces, d)
-        return out
+        """The global array from every rank's block (one all-gather over
+        the leaf's ``data`` and ``model`` axes; no autograd)."""
+        axes = tuple(a for a, d in (("data", self.dim), ("model", self.tp_dim)) if d is not None)
+        if not axes:
+            return local.detach()
+        group = axes_group(self.mesh, axes)
+        flat = all_gather(local.detach().reshape(-1), 0, group)
+        return _blocks(self, local.shape, axes).assemble(flat.view(dist.get_world_size(group), -1))
 
     def per_layer(self) -> "Sharding":
         """The placement of one layer's view of a stacked leaf."""
@@ -408,9 +390,7 @@ def shard_params(params, mesh):
     """Keep each rank's block of every parameter of ``params`` (a module,
     whose parameters are replaced in place, or a name -> tensor mapping,
     for which a new dict is returned) under the rule table, and record each
-    leaf's ``Sharding`` on it. On a ``model`` axis above 1 the ``tp_sp`` and
-    ``fsdp`` styles raise (``_check_executable``)."""
-    _check_executable(mesh)
+    leaf's ``Sharding`` on it."""
     parts = _fused(params)
     out = {}
     for name, p in _named(params).items():
@@ -435,7 +415,6 @@ def empty_blocks(module: torch.nn.Module, mesh, device) -> torch.nn.Module:
     of this rank's block, its ``Sharding`` recorded on it, so that the
     initialisers draw each global block and keep this rank's
     (``models.layers.dense_fill_``)."""
-    _check_executable(mesh)
     parts = _fused(module)
     for name, p in list(module.named_parameters()):
         sh = _placement(name, p, mesh, parts)
@@ -514,12 +493,15 @@ def all_reduce_(x: torch.Tensor, groups) -> torch.Tensor:
 
 
 def tp_size() -> int:
-    """The ``model`` axis size of the installed mesh (1 without one)."""
-    return model_axis(_MESH) if _MESH is not None else 1
+    """The ``model`` axis size of the installed mesh (1 without one, and
+    under ``fsdp``, where the model axis holds batch rows, not a block of
+    each layer's work)."""
+    return model_axis(_MESH) if _MESH is not None and _STYLE != "fsdp" else 1
 
 
 def tp_rank() -> int:
-    """This rank's index on the installed mesh's ``model`` axis."""
+    """This rank's index on the installed mesh's ``model`` axis (0 where
+    ``tp_size()`` is 1)."""
     return _MESH.get_local_rank("model") if tp_size() > 1 else 0
 
 
@@ -611,68 +593,206 @@ def tp_all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     return all_gather(x, dim, _MESH.get_group("model"), key="tp_all_gather")
 
 
-def _global_shape(shape: torch.Size, dim: int, n: int) -> tuple[int, ...]:
-    return (*shape[:dim], n * shape[dim], *shape[dim + 1:])
+def gather_axes(sh: Optional[Sharding]) -> tuple[str, ...]:
+    """The mesh axes that a leaf's gather at its use runs over, and its
+    gradient's reduce-scatter: ``data`` where the leaf holds a ``data``
+    shard (at every axis size), and under ``fsdp`` ``model`` too where it
+    holds a ``model`` block on an axis above 1 (the layer runs on whole
+    weights there)."""
+    if sh is None:
+        return ()
+    axes = ("data",) if sh.dim is not None else ()
+    if _STYLE == "fsdp" and sh.tp_dim is not None and model_axis(sh.mesh) > 1:
+        axes += ("model",)
+    return axes
+
+
+def axes_group(mesh, axes: tuple[str, ...]):
+    """The process group over the product of ``axes`` (row-major: group
+    rank = the rank's linear index over ``axes``); one mesh axis's own
+    group, else one made once per mesh with ``dist.new_group`` (every rank
+    makes every slice's group, in the same order)."""
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    made = mesh.__dict__.setdefault("_axes_groups", {})
+    if axes not in made:
+        names = list(mesh.mesh_dim_names)
+        idx = [names.index(a) for a in axes]
+        ranks = mesh.mesh.movedim(idx, list(range(-len(idx), 0)))
+        for row in ranks.reshape(-1, math.prod(ranks.shape[-len(idx):])).tolist():
+            group = dist.new_group(row)
+            if dist.get_rank() in row:
+                if row != sorted(row):  # a group ranks its members in rank order
+                    raise ValueError(f"the ranks {row} of the axes {axes} are not in rank order")
+                made[axes] = group
+    return made[axes]
+
+
+def _join(x: torch.Tensor, d: int, segs=()) -> torch.Tensor:
+    """Blocks stacked on a leading rank axis, (n, *block), as one array
+    along the block's dim ``d`` in rank order; part by part where ``segs``
+    ((global, local, blocked) of each part of dim ``d``) is given, a part
+    that is not blocked taken from rank 0."""
+    if not segs:
+        y = x.movedim(0, d)
+        return y.reshape(*y.shape[:d], y.shape[d] * y.shape[d + 1], *y.shape[d + 2:])
+    pieces, at = [], 0
+    for _, local, blocked in segs:
+        part = x.narrow(d + 1, at, local)
+        pieces.append(_join(part, d) if blocked else part[0])
+        at += local
+    return torch.cat(pieces, d)
+
+
+def _split(g: torch.Tensor, d: int, n: int, segs=()) -> torch.Tensor:
+    """The inverse of ``_join``: each of ``n`` ranks' blocks of ``g`` along
+    dim ``d``, stacked on a leading rank axis; a part that is not blocked
+    goes whole to rank 0's block, and zeros to the others'."""
+    if not segs:
+        return g.reshape(*g.shape[:d], n, g.shape[d] // n, *g.shape[d + 1:]).movedim(d, 0)
+    pieces, at = [], 0
+    for size, _, blocked in segs:
+        part = g.narrow(d, at, size)
+        pieces.append(_split(part, d, n) if blocked else
+                      torch.cat([part[None], part.new_zeros((n - 1, *part.shape))]))
+        at += size
+    return torch.cat(pieces, d + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Blocks:
+    """Where one leaf's blocks sit in its global array over a gather's
+    axes: the block's shape, the block dim of each axis (in the group's
+    row-major order, ``model`` last), each axis's size, and the parts of
+    the ``model`` dim (``Sharding.segments``; () for one part)."""
+
+    shape: tuple[int, ...]
+    dims: tuple[int, ...]
+    sizes: tuple[int, ...]
+    segs: tuple = ()
+
+    @property
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+    def _segs(self, i: int):
+        return self.segs if i == len(self.sizes) - 1 else ()
+
+    def assemble(self, flat: torch.Tensor) -> torch.Tensor:
+        """The global array from every rank's flat block, (ranks, numel) in
+        group order."""
+        x = flat.reshape(*self.sizes, *self.shape)
+        for i in reversed(range(len(self.sizes))):
+            x = _join(x.movedim(i, 0), i + self.dims[i], self._segs(i))
+        return x
+
+    def blocks_of(self, g: torch.Tensor) -> torch.Tensor:
+        """The inverse of ``assemble``: (ranks, numel) of ``g``'s blocks in
+        group order (a part every ``model`` rank holds whole in the first
+        ``model`` rank's block only)."""
+        x = g
+        for i in range(len(self.sizes)):
+            x = _split(x, i + self.dims[i], self.sizes[i], self._segs(i)).movedim(0, i)
+        return x.reshape(math.prod(self.sizes), -1)
+
+    def whole(self) -> list[tuple[int, int]]:
+        """(start, stop) on the block's ``model`` dim of the parts that
+        every ``model`` rank holds whole."""
+        out, at = [], 0
+        for _, local, blocked in self.segs:
+            if not blocked:
+                out.append((at, at + local))
+            at += local
+        return out
+
+
+def _blocks(sh: Sharding, shape, axes: tuple[str, ...]) -> _Blocks:
+    sizes = axis_sizes(sh.mesh)
+    segs = ()
+    if "model" in axes and sh.parts != 1:
+        segs = tuple(sh.segments(sizes["model"]))
+    return _Blocks(tuple(shape), tuple(sh.dim if a == "data" else sh.tp_dim for a in axes),
+                   tuple(sizes[a] for a in axes), segs)
 
 
 class _GatherFSDP(torch.autograd.Function):
-    """Several blocks gathered whole with one collective: the forward
-    all-gathers their concatenation and cuts every leaf out of it (along
-    its own sharded dim); the backward concatenates the leaves' gradients,
-    each laid out as its ranks' blocks, and reduce-scatters (SUM) them at
-    once. One collective a layer each way, where one a leaf would cost each
-    leaf a call's host time."""
+    """Several blocks gathered whole with one collective over ``group``: the
+    forward all-gathers their concatenation and assembles every leaf from
+    it (``_Blocks``); the backward lays out each leaf's gradient as its
+    ranks' blocks and reduce-scatters (SUM) them at once. One collective a
+    layer each way, where one a leaf would cost each leaf a call's host
+    time. The parts of a fused leaf that every ``model`` rank holds whole
+    (Mamba-2's B and C columns, gathered over ``model`` under ``fsdp``)
+    reach the first ``model`` rank's block alone and are then summed over
+    ``model``, so every rank holds the same bits (one more all-reduce)."""
 
     @staticmethod
-    def forward(ctx, group, dims, *blocks):
+    def forward(ctx, group, mesh, layouts, *blocks):
         n = dist.get_world_size(group)
-        ctx.group, ctx.dims, ctx.shapes = group, dims, [b.shape for b in blocks]
+        ctx.group, ctx.mesh, ctx.layouts = group, mesh, layouts
         full = all_gather(torch.cat([b.reshape(-1) for b in blocks]), 0, group).view(n, -1)
         outs, off = [], 0
-        for b, d in zip(blocks, dims):
-            ranks = full[:, off:off + b.numel()].reshape(n, *b.shape)
-            outs.append(ranks.movedim(0, d).reshape(_global_shape(b.shape, d, n)))
+        for b, lay in zip(blocks, layouts):
+            outs.append(lay.assemble(full[:, off:off + b.numel()]))
             off += b.numel()
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *grads):
-        n = dist.get_world_size(ctx.group)
+        like = next(g for g in grads if g is not None)
         parts = []
-        for g, shape, d in zip(grads, ctx.shapes, ctx.dims):
-            full = _global_shape(shape, d, n)
+        for g, lay in zip(grads, ctx.layouts):
             if g is None:  # a leaf the forward did not use
-                g = torch.zeros(full, dtype=grads[0].dtype, device=grads[0].device)
-            ranks = g.reshape(*shape[:d], n, shape[d], *shape[d + 1:]).movedim(d, 0)
-            parts.append(ranks.reshape(n, -1))
+                parts.append(like.new_zeros((math.prod(lay.sizes), lay.numel)))
+            else:
+                parts.append(lay.blocks_of(g))
         out = reduce_scatter(torch.cat(parts, dim=1).view(-1), 0, ctx.group)
         locals_, off = [], 0
-        for shape in ctx.shapes:
-            locals_.append(out[off:off + shape.numel()].view(shape))
-            off += shape.numel()
-        return (None, None, *locals_)
+        for lay in ctx.layouts:
+            locals_.append(out[off:off + lay.numel].view(lay.shape))
+            off += lay.numel
+        whole = [(t, lay.dims[-1], lo, hi) for t, lay in zip(locals_, ctx.layouts)
+                 for lo, hi in lay.whole()]
+        if whole:
+            flat = all_reduce_(torch.cat([t.narrow(d, lo, hi - lo).reshape(-1)
+                                          for t, d, lo, hi in whole]),
+                               [ctx.mesh.get_group("model")])
+            at = 0
+            for t, d, lo, hi in whole:
+                part = t.narrow(d, lo, hi - lo)
+                part.copy_(flat[at:at + part.numel()].view(part.shape))
+                at += part.numel()
+        return (None, None, None, *locals_)
 
 
 def gather_params(params: dict[str, torch.Tensor],
                   shardings: Mapping[str, Optional[Sharding]]) -> dict[str, torch.Tensor]:
     """FSDP weight gather: ``params`` (one layer's leaves, already cast to
     the compute type, so that type goes over the wire, as the JAX package
-    pins with its optimisation barrier) with every leaf that ``shardings``
-    places on ``data`` gathered whole, all of them in one all-gather. The
-    backward reduce-scatters their compute-type gradients, the JAX step's
-    ``bf16_comms`` reduction. Issued at every axis size, a world of 1
-    included; replicated leaves pass through."""
-    names = [k for k in params if (sh := shardings.get(k)) is not None and sh.dim is not None]
-    if not names:
+    pins with its optimisation barrier) with every leaf gathered whole over
+    its ``gather_axes`` (``data``; ``data`` and ``model`` under ``fsdp``),
+    all the leaves of one set of axes in one all-gather over their product
+    (``axes_group``). The backward reduce-scatters their compute-type
+    gradients, the JAX step's ``bf16_comms`` reduction. Issued at every
+    axis size, a world of 1 included; replicated leaves pass through."""
+    by_axes: dict[tuple, list[str]] = {}
+    for k in params:
+        axes = gather_axes(shardings.get(k))
+        if axes:
+            by_axes.setdefault(axes, []).append(k)
+    if not by_axes:
         return params
-    groups = {shardings[k].group for k in names}
-    dtypes = {params[k].dtype for k in names}
-    if len(groups) != 1 or len(dtypes) != 1:
-        raise ValueError(f"gather_params: the leaves {names} mix process groups or dtypes "
-                         f"({dtypes})")
-    gathered = _GatherFSDP.apply(groups.pop(), tuple(shardings[k].dim for k in names),
-                                 *(params[k] for k in names))
-    return {**params, **dict(zip(names, gathered))}
+    out = dict(params)
+    for axes, names in by_axes.items():
+        dtypes = {params[k].dtype for k in names}
+        if len(dtypes) != 1:
+            raise ValueError(f"gather_params: the leaves {names} mix dtypes ({dtypes})")
+        mesh = shardings[names[0]].mesh
+        layouts = tuple(_blocks(shardings[k], params[k].shape, axes) for k in names)
+        gathered = _GatherFSDP.apply(axes_group(mesh, axes), mesh, layouts,
+                                     *(params[k] for k in names))
+        out.update(zip(names, gathered))
+    return out
 
 
 def gather_fsdp(w: torch.Tensor, sharding: Optional[Sharding]) -> torch.Tensor:
@@ -681,22 +801,24 @@ def gather_fsdp(w: torch.Tensor, sharding: Optional[Sharding]) -> torch.Tensor:
 
 
 class _LookupRows(torch.autograd.Function):
-    """``table[idx]`` in ``dtype`` from this rank's block of the table (its
-    ``data`` shard gathered in ``dtype`` first where ``group`` is set), zero
-    rows for the indices outside the block (a vocab block on ``model``):
-    the backward accumulates the rows' gradient in float32 (as the
-    unsharded lookup's backward does) and reduce-scatters it in float32
-    over ``group``."""
+    """``table[idx]`` in ``dtype`` from this rank's block of the table
+    (gathered in ``dtype`` over ``group`` first where it is set, as
+    ``layout`` places the blocks), zero rows for the indices outside the
+    table (a vocab block on ``model``): the backward accumulates the rows'
+    gradient in float32 (as the unsharded lookup's backward does) and
+    reduce-scatters it in float32 over ``group``."""
 
     @staticmethod
-    def forward(ctx, w, idx, dim, group, dtype):
-        full = w.to(dtype) if group is None else all_gather(w.to(dtype), dim, group)
+    def forward(ctx, w, idx, layout, group, dtype):
+        w = w.to(dtype)
+        full = w if group is None else layout.assemble(
+            all_gather(w.reshape(-1), 0, group).view(dist.get_world_size(group), -1))
         n = full.shape[0]
         inside = (idx >= 0) & (idx < n)
         idx = idx.clamp(0, n - 1)
         rows = full[idx]
         ctx.save_for_backward(idx, inside)
-        ctx.dim, ctx.group, ctx.shape = dim, group, full.shape
+        ctx.layout, ctx.group, ctx.shape = layout, group, full.shape
         return torch.where(inside[..., None], rows, torch.zeros_like(rows))
 
     @staticmethod
@@ -706,26 +828,99 @@ class _LookupRows(torch.autograd.Function):
         full = g.new_zeros(ctx.shape, dtype=torch.float32).index_put_((idx,), g,
                                                                        accumulate=True)
         if ctx.group is not None:
-            full = reduce_scatter(full, ctx.dim, ctx.group)
+            full = reduce_scatter(ctx.layout.blocks_of(full).reshape(-1), 0,
+                                  ctx.group).view(ctx.layout.shape)
         return full, None, None, None, None
+
+
+def _lookup(table: torch.Tensor, idx: torch.Tensor, sh: Sharding, axes: tuple[str, ...],
+            dtype: torch.dtype) -> torch.Tensor:
+    if not axes:
+        return _LookupRows.apply(table, idx, None, None, dtype)
+    return _LookupRows.apply(table, idx, _blocks(sh, table.shape, axes),
+                             axes_group(sh.mesh, axes), dtype)
 
 
 def embed_rows(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The embedding rows of ``tokens`` in ``dtype``; a table sharded on
-    ``data`` is gathered (in ``dtype``) first. A table whose vocab is on
-    ``model`` looks up the tokens of its block (zero rows elsewhere) and sums
-    them over ``model`` (g: its gradient lands in the block's rows): one
-    term of the sum is not zero, so the rows are the unsharded lookup's,
-    bit for bit."""
+    ``data`` (under ``fsdp`` on ``model`` too) is gathered whole (in
+    ``dtype``) first. Under tensor parallelism a table whose vocab is on
+    ``model`` looks up the tokens of its block (zero rows elsewhere) and
+    sums them over ``model`` (g: its gradient lands in the block's rows):
+    one term of the sum is not zero, so the rows are the unsharded
+    lookup's, bit for bit."""
     sh = sharding_of(table)
     if sh is not None and sh.tp_dim == 0 and tp_size() > 1:
-        rows = _LookupRows.apply(table, tokens.long() - sh.offset(0), sh.dim,
-                                 None if sh.dim is None else sh.group, dtype)
-        return tp_all_reduce(rows)
-    if sh is None or sh.dim is None:
+        return tp_all_reduce(_lookup(table, tokens.long() - sh.offset(0), sh,
+                                     gather_axes(sh), dtype))
+    axes = gather_axes(sh)
+    if not axes:
         rows = table[tokens.long()]
         return rows if rows.dtype == dtype else rows.to(dtype)
-    return _LookupRows.apply(table, tokens.long(), sh.dim, sh.group, dtype)
+    return _lookup(table, tokens.long(), sh, axes, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Sequence-sharded layer carries (tp_sp)
+# ---------------------------------------------------------------------------
+
+def seq_parallel(n_positions: int) -> bool:
+    """Whether layer carries of ``n_positions`` positions are sequence-
+    sharded: the ``tp_sp`` style on a ``model`` axis above 1 that divides
+    them (elsewhere the carry stays whole: GSPMD pads an uneven block, and
+    the value is the same; a decode's one position is ``tp``'s decode)."""
+    m = tp_size()
+    return _STYLE == "tp_sp" and m > 1 and n_positions % m == 0
+
+
+class _SeqGather(torch.autograd.Function):
+    """Every ``model`` rank's block of positions concatenated along dim 1;
+    the backward keeps this rank's block of the gradient (the layer that
+    consumed the gathered carry ran in ``tp``'s layout, whose f / g pair
+    leaves a replicated activation's gradient whole on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.size = x.shape[1]
+        return all_gather(x, 1, _MESH.get_group("model"), key="seq_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(1, tp_rank() * ctx.size, ctx.size)
+
+
+class _SeqSplit(torch.autograd.Function):
+    """This rank's block of positions (dim 1) of a carry every ``model``
+    rank holds whole, in a tensor of its own (a remat region saves it, not
+    the whole carry); the backward all-gathers the gradient, counted under
+    ``seq_split_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _seq_block(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, 1, _MESH.get_group("model"), key="seq_split_bwd")
+
+
+def _seq_block(x: torch.Tensor) -> torch.Tensor:
+    n = x.shape[1] // tp_size()
+    return x.narrow(1, tp_rank() * n, n).clone(memory_format=torch.contiguous_format)
+
+
+def seq_gather(x: torch.Tensor) -> torch.Tensor:
+    """The whole carry from each ``model`` rank's block of positions (one
+    all-gather, counted under ``seq_gather``)."""
+    if _recorded(x):
+        return _SeqGather.apply(x)
+    return all_gather(x, 1, _MESH.get_group("model"), key="seq_gather")
+
+
+def seq_split(x: torch.Tensor) -> torch.Tensor:
+    """This ``model`` rank's block of positions of a whole carry (no
+    collective forward; the gradient all-gathered backward)."""
+    return _SeqSplit.apply(x) if _recorded(x) else _seq_block(x)
 
 
 def tree_map(fn, tree):

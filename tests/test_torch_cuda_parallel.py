@@ -1,7 +1,8 @@
 """The port's distribution layer over two CUDA cards with NCCL: the train
 step, a sharded fleet, the int8 cross-pod sum, tensor-parallel serving
-(minitron-4b at full width on a model axis of 2) and one tensor-parallel
-train step (minitron-4b at full width, 4 layers) of
+(minitron-4b at full width on a model axis of 2) and one train step on a
+model axis of 2 in the tp, tp_sp and fsdp styles (minitron-4b at full
+width, 4 layers) of
 ``tests/torch_cuda_world.py``, started by ``torchrun`` with one rank per
 card, each held against the unsharded run on one card. Marked ``cuda``; it
 skips below two cards. Imports nothing of JAX:
@@ -58,3 +59,24 @@ def test_two_cards_tensor_parallel_train_step(tmp_path):
     # at the last tensor the backward saved, before w_down's)
     assert tp["collectives"]["tp_all_reduce"] == 2 * 4 + 4 + 4
     assert tp["collectives"]["tp_copy_bwd"] == 2 * 4 + 1
+
+
+def test_two_cards_tp_sp_and_fsdp_train_steps(tmp_path):
+    """minitron-4b at 4 layers, one float32 train step in the tp_sp and the
+    fsdp style over two NCCL ranks, each rank's blocks within 1e-4 of the
+    leaf's scale of the unsharded step on one card. tp_sp: tp's g and f,
+    and the carry gathered a layer forward and in the recompute and before
+    the final norm (4 + 4 + 1), split a layer and after the embedding
+    backward (5); fsdp: no g, f or carry collective, a layer's weights,
+    the embedding and the head gathered (6, 4 more in the recompute) and
+    reduce-scattered back (6)."""
+    result = _two_cards(tmp_path, "tp_sp_train", "fsdp_train")
+    assert result["world"] == 2 and "nccl" in result["backend"]
+    for style in ("tp_sp", "fsdp"):
+        r = result[f"{style}_train"]
+        assert r["err_of_leaf_scale"] <= 1e-4 and r["loss_rel_err"] <= 1e-5, (style, r)
+    sp, fsdp = result["tp_sp_train"]["collectives"], result["fsdp_train"]["collectives"]
+    assert (sp["tp_all_reduce"], sp["tp_copy_bwd"]) == (2 * 4 + 4 + 4, 2 * 4 + 1)
+    assert (sp["seq_gather"], sp["seq_split_bwd"]) == (4 + 4 + 1, 4 + 1)
+    assert not any(k.startswith(("tp_", "seq_")) for k in fsdp), fsdp
+    assert (fsdp["all_gather"], fsdp["reduce_scatter"]) == (6 + 4, 6)

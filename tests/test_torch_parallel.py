@@ -138,18 +138,25 @@ def test_constrain_act_is_the_identity():
 
 @pytest.mark.parametrize("style", ["tp_sp", "fsdp"])
 def test_pending_styles_raise_in_the_train_step(style):
-    """A train step on a model axis above 1 runs in the tp style
-    (tests/test_torch_tp_train.py); tp_sp and fsdp there raise, naming
-    Queue 1 item 6c, before the step touches the parameters."""
+    """The train step runs in every style on a model axis above 1
+    (tests/test_torch_tp_styles.py); what stays refused there is a decode
+    under fsdp, whose cache has no placement: ``init_cache`` and
+    ``decode_step`` raise naming ``cache_pspecs``' duplicate ``model``
+    placement, before anything is allocated, while tp_sp allocates the
+    cache (whole on a mapping of axis sizes) and leaves the parameters
+    untouched."""
     api = build_model(reduced(get_config("minitron-4b")), device="cpu")
     model = api.init(0)
-    step = make_train_step(api, AdamWConfig(), total_steps=10)
-    tokens = torch.zeros((2, 4), dtype=torch.int32)
-    batch = {"tokens": tokens, "labels": tokens.long()}
+    tokens = torch.zeros((2, 1), dtype=torch.int32)
     for sizes in ({"data": 1, "model": 2}, {"data": 2, "model": 4}):
         with sharding.mesh_context(sizes, style):
-            with pytest.raises(NotImplementedError, match=rf"{style} style.*item 6c"):
-                step(model, adamw_init(model), batch)
+            if style == "fsdp":
+                for call in (lambda: api.init_cache(2, 4),
+                             lambda: api.decode_step(model, {}, tokens)):
+                    with pytest.raises(NotImplementedError, match=r"fsdp style.*cache_pspecs"):
+                        call()
+            else:
+                assert tuple(api.init_cache(2, 4)["k0"].shape[1:3]) == (2, 4)
     assert not any(p.requires_grad for p in model.parameters())
 
 

@@ -142,13 +142,21 @@ def test_kv_layout_matches_jax(style):
 
 @pytest.mark.parametrize("arch", ["minitron-4b", "zamba2-2.7b", "whisper-base"])
 def test_pending_styles_raise_on_a_model_axis_above_one(arch):
-    """Serving on a model axis above 1 takes the serve and tp styles for
-    every family; tp_sp and fsdp there raise, naming Queue 1 item 6c."""
-    model = new_model(reduced(get_config(arch)), "meta")
+    """On a model axis above 1 tp_sp and fsdp place every parameter as tp
+    does (the rule table's 2-D blocks: only serve differs); the one path
+    still refused is fsdp's decode cache, naming ``cache_pspecs``."""
+    cfg = reduced(get_config(arch))
+    model = new_model(cfg, "meta")
+    sizes = {"data": 1, "model": 2}
+    with sharding.mesh_context(sizes, "tp"):
+        want = sharding.shard_params_pspecs(model, sizes)
+    assert any("model" in spec for spec in want.values())
     for style in ("fsdp", "tp_sp"):
-        with sharding.mesh_context({"data": 1, "model": 2}, style):
-            with pytest.raises(NotImplementedError, match=rf"{style} style.*item 6c"):
-                sharding.shard_params(model, {"data": 1, "model": 2})
+        with sharding.mesh_context(sizes, style):
+            assert sharding.shard_params_pspecs(model, sizes) == want
+            if style == "fsdp":
+                with pytest.raises(NotImplementedError, match=r"fsdp style.*cache_pspecs"):
+                    build_model(cfg, device="meta").init_cache(2, 16)
 
 
 # --------------------------------------------------------------------------

@@ -3,7 +3,8 @@
     PYTHONPATH=src torchrun --standalone --nproc_per_node 2 tests/torch_cuda_world.py OUT.json [CASE ...]
 
 CASE names what runs (default: train_f32, train_bf16_remat, fleet,
-cross_pod, tp; ``tp_train`` is the tensor-parallel train step).
+cross_pod, tp; ``tp_train``, ``tp_sp_train`` and ``fsdp_train`` are the
+train step on a model axis of 2 in the tp, tp_sp and fsdp styles).
 
 Over a (2, 1) NCCL mesh (``make_host_mesh``, ``cuda:LOCAL_RANK``): one train
 step of reduced minitron-4b (float32, and bf16 with remat) on sharded
@@ -16,8 +17,9 @@ dequantised and summed in pod order, bit for bit; tensor-parallel serving
 over a (1, 2) mesh: minitron-4b at full width (bf16 weights from seed 0,
 float32 compute), six teacher-forced decode steps against the unsharded
 run on rank 0's card (1e-4 of scale, greedy tokens equal), with the
-collectives a step; one tensor-parallel train step over a (1, 2) mesh in
-the tp style: minitron-4b at full width cut to 4 layers, float32, B 4 x
+collectives a step; one train step over a (1, 2) mesh in the tp, tp_sp
+(sequence-sharded layer carries) or fsdp (whole-layer gathers over data x
+model) style: minitron-4b at full width cut to 4 layers, float32, B 4 x
 128, each rank holding its blocks against the unsharded step on its own
 card (``chip_smoke.hold_train_blocks``: the loss 1e-5 relative, grad norm,
 moments and updated parameters 1e-4 of each leaf's scale). Rank 0 writes
@@ -160,7 +162,7 @@ def tp_case(dev) -> dict:
     return out
 
 
-def tp_train_case(dev) -> dict:
+def tp_train_case(dev, style: str = "tp") -> dict:
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
     from repro_torch import models
@@ -168,7 +170,7 @@ def tp_train_case(dev) -> dict:
     mesh = make_host_mesh(model_parallel=2)
     api = build_model(cfg, device=dev)
     batch = chip_smoke.tp15_batch(torch, cfg, dev)
-    with sharding.mesh_context(mesh, "tp"):
+    with sharding.mesh_context(mesh, style):
         model = api.init(0, mesh=mesh)
         opt = adamw_init(model)
         local = {k: sharding.local_rows(v, mesh) for k, v in batch.items()}
@@ -187,7 +189,9 @@ CASES = {
     "train_bf16_remat": lambda mesh, dev: train_case(
         mesh, dev, {"compute_dtype": "bfloat16", "remat": True}, 2e-2),
     "fleet": fleet_case, "cross_pod": lambda mesh, dev: cross_pod_case(dev),
-    "tp": lambda mesh, dev: tp_case(dev), "tp_train": lambda mesh, dev: tp_train_case(dev),
+    "tp": lambda mesh, dev: tp_case(dev),
+    **{f"{style}_train": lambda mesh, dev, style=style: tp_train_case(dev, style)
+       for style in ("tp", "tp_sp", "fsdp")},
 }
 
 

@@ -256,20 +256,26 @@ def tp_serving(cases) -> list:
 
 def tp_train(cases) -> list:
     """Each case (dict: cfg fields, the port's weights as numpy, the global
-    batch, mesh shape, optional ``save`` / ``restore`` snapshot directory)
-    on a (data, model) mesh in the tp style: the port's model sharded by
-    ``shard_params`` (restored from the snapshot's step 1 by
-    ``restore_sharded``, then one step, where ``restore`` is set), one
-    ``make_train_step`` on this rank's rows; the metrics, every leaf's
-    parameters and moments gathered whole, this rank's blocks of the leaves
-    (and of the fused leaves' parts) that every model rank holds whole,
-    and the collectives of the step (a snapshot of the state after it is
-    written where ``save`` is set)."""
+    batch, mesh shape, optional ``style`` (default tp), ``save`` /
+    ``restore`` snapshot directory, ``forward`` / ``decode`` tokens) on a
+    (data, model) mesh: the port's model sharded by ``shard_params``
+    (restored from the snapshot's step 1 by ``restore_sharded``, then one
+    step, where ``restore`` is set), one ``make_train_step`` on this rank's
+    rows; the metrics, every leaf's parameters and moments gathered whole,
+    this rank's blocks of the leaves (and of the fused leaves' parts) that
+    every model rank holds whole, and the collectives of the step, of its
+    forward (through the loss) apart (a snapshot of the state after it is
+    written where ``save`` is set). Before the step, where given, the
+    forward logits of this rank's rows of ``forward`` and
+    (``tp_decode``) the decode logits of each teacher-forced step of
+    ``decode`` with the collectives of each; under fsdp the refusals of a
+    decode and of its cache."""
     from repro_torch import checkpoint
     from repro_torch.configs import ArchConfig
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import build_model, new_model
     from repro_torch.optim import AdamWConfig, AdamWState, adamw_init
+    from repro_torch.optim.adamw import global_norm
     from repro_torch.parallel import sharding
 
     out = []
@@ -279,10 +285,13 @@ def tp_train(cases) -> list:
         api = build_model(cfg, device="cpu")
         model = new_model(cfg, "cpu")
         model.load_state_dict({k: torch.as_tensor(v) for k, v in case["weights"].items()})
-        with sharding.mesh_context(mesh, "tp"):
+        res = {}
+        with sharding.mesh_context(mesh, case.get("style", "tp")):
             sharding.shard_params(model, mesh)
             named = dict(model.named_parameters())
             shs = {k: sharding.sharding_of(p) for k, p in named.items()}
+            if "forward" in case:
+                res.update(_tp_serving_checks(api, model, case, mesh))
             opt = adamw_init(model)
             tree_sh = {"params": shs, "opt": AdamWState(step=None, m=shs, v=shs)}
             if case.get("restore"):
@@ -291,10 +300,18 @@ def tp_train(cases) -> list:
                 checkpoint.load_into({"params": named, "opt": opt}, tree)
             batch = {k: sharding.local_rows(torch.as_tensor(v), mesh)
                      for k, v in case["batch"].items()}
+            forward = {}
+
+            def loss(model, batch, _loss=api.loss):
+                value = _loss(model, batch)
+                forward.update(sharding.comm_counts)
+                return value
+
             sharding.reset_comm_counts()
-            model, opt, met = make_train_step(api, AdamWConfig(), total_steps=10)(
-                model, opt, batch)
+            model, opt, met = make_train_step(dataclasses.replace(api, loss=loss), AdamWConfig(),
+                                              total_steps=10)(model, opt, batch)
             comm = dict(sharding.comm_counts)
+            m_norm = float(global_norm(opt.m, shs))
             full = {key: {k: shs[k].gather(t).numpy() for k, t in tree.items()}
                     for key, tree in (("params", named), ("m", opt.m), ("v", opt.v))}
             if case.get("save"):
@@ -309,12 +326,58 @@ def tp_train(cases) -> list:
                     for lo, hi in sh.tp_whole()]
 
         out.append({
-            "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+            **res, "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
             "tokens": float(met["tokens"]), **full, "comm": comm,
+            "comm_forward": {k: v for k, v in forward.items() if not k.endswith("_bytes")},
+            "m_norm": m_norm, "dims": {k: sh.dim for k, sh in shs.items()},
             "tp_dims": {k: sh.tp_dim for k, sh in shs.items()},
             "replicated": {key: {k: whole(t, shs[k]) for k, t in tree.items()}
                            for key, tree in (("params", named), ("m", opt.m))},
         })
+    return out
+
+
+def _tp_serving_checks(api, model, case, mesh) -> dict:
+    """The forward logits of this rank's rows of ``case["forward"]`` (and
+    its patches or frames) and their collectives; with a ``decode``
+    (tokens, cache length) pair, the logits of each teacher-forced decode
+    step and its collectives, or under fsdp the refusals of the cache and
+    of a decode step."""
+    from repro_torch.models import encdec
+    from repro_torch.parallel import sharding
+    cfg = api.cfg
+    rows = lambda a: sharding.local_rows(torch.as_tensor(a), mesh)  # noqa: E731
+    batch = {k: rows(v) for k, v in case["forward"].items()}
+    out = {}
+    with torch.no_grad():
+        sharding.reset_comm_counts()
+        out["forward"] = api.forward(model, batch).numpy()
+        out["forward_comm"] = {k: v for k, v in sharding.comm_counts.items()
+                               if not k.endswith("_bytes")}
+        if "decode" not in case:
+            return out
+        tokens, max_len = case["decode"]
+        if sharding.current_style() == "fsdp":
+            refused = {}
+            for what, call in (("cache", lambda: api.init_cache(tokens.shape[0], max_len)),
+                               ("decode", lambda: api.decode_step(model, {}, rows(tokens[:, :1])))):
+                try:
+                    call()
+                    refused[what] = ""
+                except NotImplementedError as exc:
+                    refused[what] = str(exc)
+            out["decode_refused"] = refused
+            return out
+        cache = api.init_cache(tokens.shape[0], max_len)
+        if cfg.family == "encdec":
+            cache = encdec.prefill_cross(cfg, model, batch["frames"], cache)
+        steps, comm = [], []
+        for t in range(tokens.shape[1]):
+            sharding.reset_comm_counts()
+            logits, cache = api.decode_step(model, cache, rows(tokens[:, t:t + 1]))
+            comm.append({k: v for k, v in sharding.comm_counts.items() if not k.endswith("_bytes")})
+            steps.append(logits.numpy())
+        out["decode"], out["decode_comm"] = np.stack(steps), comm
     return out
 
 
