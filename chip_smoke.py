@@ -151,6 +151,20 @@ Phases, each fatal on failure:
      use), held in float32 as 15 (b) holds them, then 2 bf16 steps each
      with the same attention launches; minitron-4b's collectives of a step
      exactly ``tp_train_comm``'s in all three styles.
+ 17. (a) a batch below dp: phase 14's two gloo ranks as a (data 2, model 1)
+     mesh serve ``serve.main --batch 1`` of minitron-4b at 4 of 32 layers
+     and whisper-base whole (its self- and cross-attention caches), every
+     decode cache's slots split over ``data`` (each rank decodes the whole
+     batch over its half of the slots through the decode kernel's
+     log-sum-exp route, and the halves merge by one all-gather an
+     attention), with exact launches and collectives a step; 8
+     teacher-forced steps held in float32 within 1e-4 of scale of the
+     unsharded run on the card, the bf16 gap printed; ms per step. (b) the
+     dry run (``repro_torch.launch.dryrun``, its own process each, started
+     after phase 4 at a lower priority on the host's CPU) of whisper-base
+     train_4k on the pod mesh, mixtral-8x7b long_500k on the pod mesh and
+     minitron-4b decode_32k on the multipod mesh: each must print ``OK``;
+     its roofline is printed as a projection from the H100 data sheet.
 Phase 6 also holds the decode kernel's log-sum-exp output against its plain
 version (granite-20b's decode on one of phase 14's ranks, a row that sees
 no key, a rank's half of a 32,768-slot cache).
@@ -164,9 +178,11 @@ every measurement to PATH.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -2558,6 +2574,19 @@ TP_F32_TOL = 1e-4
 TP_TIMEOUT_S = 480
 
 
+@dataclasses.dataclass(frozen=True)
+class ServeSetup:
+    """The serve runs and checks of a two-rank phase: global batch,
+    teacher-forced check steps, ranks on the ``model`` axis (the rest on
+    ``data``)."""
+    batch: int = TP_BATCH
+    steps: int = TP_STEPS
+    model_parallel: int = TP_WORLD
+
+
+TP_SETUP = ServeSetup()
+
+
 def tp_config(configs, arch: str, layers: int, compute_dtype: str = ""):
     cfg = configs.get_config(arch)
     if layers:
@@ -2565,25 +2594,39 @@ def tp_config(configs, arch: str, layers: int, compute_dtype: str = ""):
     return dataclasses.replace(cfg, compute_dtype=compute_dtype) if compute_dtype else cfg
 
 
-def tp_argv(arch: str, layers: int, device: str, model_parallel: int) -> list:
-    return (["--arch", arch, "--device", device, "--batch", str(TP_BATCH), "--prompt-len",
+def tp_argv(arch: str, layers: int, device: str, model_parallel: int,
+            batch: int = TP_BATCH) -> list:
+    return (["--arch", arch, "--device", device, "--batch", str(batch), "--prompt-len",
              str(TP_PROMPT), "--gen", str(TP_GEN), "--model-parallel", str(model_parallel)]
             + (["--layers", str(layers)] if layers else []))
 
 
-def tp_tokens(torch, cfg, device):
+def tp_tokens(torch, cfg, device, setup: ServeSetup = TP_SETUP):
     rng = np.random.default_rng(5)
-    return torch.as_tensor(rng.integers(0, cfg.vocab_size, (TP_BATCH, TP_STEPS)),
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size, (setup.batch, setup.steps)),
                            dtype=torch.int32, device=device)
 
 
-def tp_frames(torch, cfg, device):
+def tp_frames(torch, cfg, device, batch: int = TP_BATCH):
     """``serve.main``'s stub frames of an encoder-decoder (seed 1)."""
     gen = torch.Generator(device=device).manual_seed(1)
-    return torch.randn((TP_BATCH, cfg.enc_ctx, cfg.d_model), generator=gen, device=device)
+    return torch.randn((batch, cfg.enc_ctx, cfg.d_model), generator=gen, device=device)
 
 
-def tp_checks(torch, configs, models, sharding, arch, layers, device, mesh=None) -> dict:
+def rank_rows(sharding, x, mesh):
+    """This rank's rows of a global batch leaf, as ``serve.main`` takes
+    them: its block where the rows divide over the data-parallel ranks, else
+    the whole batch."""
+    if mesh is None:
+        return x
+    try:
+        return sharding.local_rows(x, mesh)
+    except ValueError:
+        return x
+
+
+def tp_checks(torch, configs, models, sharding, arch, layers, device, mesh=None,
+              setup: ServeSetup = TP_SETUP) -> dict:
     """Teacher-forced decode logits (B, steps, V) on the host, in float32
     compute and in bf16, of the bf16 weights drawn from seed 0 (the serve
     run's), this rank's block of them under ``mesh``; an MoE's expert ids
@@ -2598,16 +2641,13 @@ def tp_checks(torch, configs, models, sharding, arch, layers, device, mesh=None)
         api = models.build_model(cfg, device=device)
         if model is None:
             model = api.init(0, dtype=torch.bfloat16, mesh=mesh)
-        tokens = tp_tokens(torch, cfg, device)
-        if mesh is not None:
-            tokens = sharding.local_rows(tokens, mesh)
-        cache = api.init_cache(TP_BATCH, TP_STEPS + 2)
+        tokens = rank_rows(sharding, tp_tokens(torch, cfg, device, setup), mesh)
+        cache = api.init_cache(setup.batch, setup.steps + 2)
         if cfg.family == "encdec":  # serve.main's frames, each rank's rows
-            frames = tp_frames(torch, cfg, device)
-            frames = sharding.local_rows(frames, mesh) if mesh is not None else frames
+            frames = rank_rows(sharding, tp_frames(torch, cfg, device, setup.batch), mesh)
             cache = encdec.prefill_cross(cfg, model, frames, cache)
         steps, routes = [], []
-        for t in range(TP_STEPS):
+        for t in range(setup.steps):
             with moe.recording_routing() as log:
                 logits, cache = api.decode_step(model, cache, tokens[:, t:t + 1])
             steps.append(logits[:, 0].float().cpu())
@@ -2635,12 +2675,13 @@ def tp_agreeing_rows(torch, got: dict, want: dict, cdt: str):
 
 
 def tp_worker(rank: int, world: int, work: str, cells, device: str, train_cells=(),
-              train_styles=("tp",)) -> None:
-    """One rank of phases 14-16 (a spawned process): a gloo group through a
+              train_styles=("tp",), setup: ServeSetup = TP_SETUP) -> None:
+    """One rank of phases 14-17 (a spawned process): a gloo group through a
     FileStore under ``work``; per cell ``serve.main`` at ``--model-parallel
-    world`` with every launch count set to 0 just before it and read just
-    after, then ``tp_checks`` on this rank's blocks; per train style and
-    train cell ``tp_train_cell``; the results go to ``work/rank{rank}.pt``."""
+    setup.model_parallel`` and ``--batch setup.batch`` with every launch
+    count set to 0 just before it and read just after, then ``tp_checks``
+    on this rank's blocks; per train style and train cell
+    ``tp_train_cell``; the results go to ``work/rank{rank}.pt``."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(SRC))
@@ -2662,12 +2703,14 @@ def tp_worker(rank: int, world: int, work: str, cells, device: str, train_cells=
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_counts(*kernels)
-            summary = serve.main(tp_argv(arch, layers, device, world))
+            summary = serve.main(tp_argv(arch, layers, device, setup.model_parallel,
+                                         setup.batch))
             launches = all_counts(*kernels)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            mesh = make_host_mesh(model_parallel=world, device=device)
+            mesh = make_host_mesh(model_parallel=setup.model_parallel, device=device)
             with sharding.mesh_context(mesh, "serve"):
-                logits = tp_checks(torch, configs, models, sharding, arch, layers, device, mesh)
+                logits = tp_checks(torch, configs, models, sharding, arch, layers, device, mesh,
+                                   setup)
             out[arch] = {"summary": summary, "launches": launches, "serve_peak_gib": peak,
                          "logits": logits}
         for style in train_styles:
@@ -2713,6 +2756,24 @@ def tp_expected(configs, arch: str, layers: int, steps: int, world: int):
         launches["flash_attention_decode_lse"] = n
     comm = {"tp_all_reduce": reduces + vocab, "tp_all_gather": vocab + (2 * attns if seq else 0)}
     return launches, {k: v for k, v in comm.items() if v}
+
+
+def split_expected(configs, arch: str, layers: int, steps: int, world: int):
+    """(launches of a serve run of ``steps`` decode steps, collectives of a
+    step) of a batch below dp on a (world, 1) mesh: every slot split over
+    ``data``, so every decode attention takes the decode kernel's
+    log-sum-exp route and merges by one all-gather over ``data``
+    (``slot_all_gather``); a whisper encoder's layers first (float32: the
+    SIMT kernel a layer); nothing on the ``model`` axis of 1."""
+    cfg = tp_config(configs, arch, layers)
+    attns, extra = cfg.n_layers, 0
+    if cfg.family == "hybrid":
+        attns = cfg.n_layers // cfg.hybrid_attn_every
+    elif cfg.family == "encdec":
+        attns, extra = 2 * cfg.n_layers, cfg.n_enc_layers
+    n = attns * steps
+    return ({"flash_attention": n + extra, "flash_attention_decode": n,
+             "flash_attention_decode_lse": n}, {"slot_all_gather": attns})
 
 
 # --------------------------------------------------------------------------
@@ -2942,8 +3003,80 @@ def tp_train_cell(torch, models, configs, sharding, kernels, arch: str, layers: 
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 17: (a) a batch below dp on the card; (b) the dry run on its host
+# --------------------------------------------------------------------------
+
+# minitron-4b at 4 of 32 layers (its self cache's slots on data) and
+# whisper-base whole (self and cross caches on data), served at B 1 by two
+# gloo ranks on a (2, 1) mesh and held over 8 teacher-forced steps.
+SPLIT_CELLS = (("minitron-4b", 4), ("whisper-base", 0))
+SPLIT_SETUP = ServeSetup(batch=1, steps=8, model_parallel=1)
+# Dry-run cells, each its own process on the host's CPU; their rooflines are
+# projections from the H100 data sheet's constants.
+DRYRUN_CELLS = (("whisper-base", "train_4k", "pod"), ("mixtral-8x7b", "long_500k", "pod"),
+                ("minitron-4b", "decode_32k", "multipod"))
+DRYRUN_TIMEOUT_S = 600
+
+
+def _lower_priority() -> None:
+    os.nice(10)
+
+
+def start_dryrun() -> dict:
+    """Start ``python -m repro_torch.launch.dryrun`` for every cell of
+    ``DRYRUN_CELLS`` (one intra-op thread each, at a lower priority than
+    this process); they are stopped when this process exits."""
+    out = ROOT / "build" / "chip_smoke_dryrun"
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
+    procs = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        procs[(arch, shape, mesh)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--mesh", mesh, "--out", str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, preexec_fn=_lower_priority)
+
+    def stop():
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop)
+    return {"procs": procs, "out": out, "t0": time.perf_counter(), "stop": stop}
+
+
+def join_dryrun(started: dict) -> dict:
+    """Each cell's ``OK`` line and record (fails on another line, a non-zero
+    exit or ``DRYRUN_TIMEOUT_S`` after the start)."""
+    deadline = started["t0"] + DRYRUN_TIMEOUT_S
+    out = {}
+    try:
+        for (arch, shape, mesh), proc in started["procs"].items():
+            try:
+                stdout, stderr = proc.communicate(timeout=max(deadline - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                fail(f"phase 17 (b): the dry run of {arch} {shape} {mesh} did not finish in "
+                     f"{DRYRUN_TIMEOUT_S} s")
+            line = stdout.strip().splitlines()[-1] if stdout.strip() else ""
+            if proc.returncode != 0 or not line.startswith("OK "):
+                fail(f"phase 17 (b): dry run of {arch} {shape} {mesh} exited "
+                     f"{proc.returncode}: {line}\n{stderr[-2000:]}")
+            tag = f"{arch}_{shape}_{mesh}".replace(".", "_")
+            rec = json.loads((started["out"] / f"{tag}.json").read_text())
+            out[tag] = {"line": line, "route": rec["route"], "host_s": rec["compile_seconds"],
+                        "memory": rec["memory"], "cost": rec["cost"],
+                        "collectives_bytes": rec["collectives_bytes"],
+                        "collective_calls_by_group": rec["collective_calls_by_group"],
+                        "analytic_memory": rec["analytic_memory"], "roofline": rec["roofline"]}
+    finally:
+        started["stop"]()
+    return out
+
+
 def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cuda:0",
-             train_cells=(), phase: int = 14, train_styles=("tp",)) -> dict:
+             train_cells=(), phase: int = 14, train_styles=("tp",),
+             setup: ServeSetup = TP_SETUP, expected=tp_expected) -> dict:
     """Phase 14: a world of two gloo ranks on the one card (NCCL refuses two
     ranks on one device), spawned after the main process frees its cached
     memory; each serves every cell through ``serve.main`` at model = 2 and
@@ -2955,7 +3088,9 @@ def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cud
     expert (a near tie of the router; the row's cache differs from there),
     the whole gap and the argmax agreement reported beside; exact launches
     of the serve run on each rank; exact collectives a step. Each rank then
-    runs the train cells in each of ``train_styles`` (``tp_train_cell``)."""
+    runs the train cells in each of ``train_styles`` (``tp_train_cell``).
+    ``setup`` sets the batch, the check steps and the model axis (phase 17:
+    B 1 on (2, 1)), ``expected`` the launches and collectives."""
     import gc
     import shutil
     import torch.multiprocessing as mp
@@ -2968,7 +3103,7 @@ def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cud
     work.mkdir(parents=True)
     t0 = time.perf_counter()
     ctx = mp.start_processes(tp_worker, args=(TP_WORLD, str(work), cells, device, train_cells,
-                                              train_styles),
+                                              train_styles, setup),
                              nprocs=TP_WORLD, join=False, start_method="spawn")
     try:
         deadline = time.monotonic() + TP_TIMEOUT_S
@@ -2993,14 +3128,14 @@ def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cud
     steps = TP_PROMPT + TP_GEN
     for arch, layers in cells:
         r0 = ranks[0][arch]
-        want_launches, want_comm = tp_expected(configs, arch, layers, steps, TP_WORLD)
+        want_launches, want_comm = expected(configs, arch, layers, steps, TP_WORLD)
         for rank, r in enumerate(ranks):
             got = r[arch]["launches"]
             if got != {k: want_launches.get(k, 0) for k in got}:
                 fail(f"phase {phase} {arch} rank {rank}: serve launches {got}, expected "
                      f"{want_launches}")
             comm = {k: v for k, v in r[arch]["summary"]["collectives_per_step"].items()
-                    if k.startswith("tp_")}
+                    if k.startswith(("tp_", "slot_"))}
             if comm != want_comm:
                 fail(f"phase {phase} {arch} rank {rank}: collectives a step {comm}, expected "
                      f"{want_comm}")
@@ -3010,9 +3145,9 @@ def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cud
         # The same cell unsharded on the same card.
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        single = serve.main(tp_argv(arch, layers, device, 1))
+        single = serve.main(tp_argv(arch, layers, device, 1, setup.batch))
         single_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        ref = tp_checks(torch, configs, models, sharding, arch, layers, device)
+        ref = tp_checks(torch, configs, models, sharding, arch, layers, device, setup=setup)
         cdts = ("float32", "bfloat16")
         gaps = {c: rel_err(r0["logits"][c], ref[c])[1] for c in cdts}
         agree = {c: float((r0["logits"][c].argmax(-1) == ref[c].argmax(-1)).float().mean())
@@ -3031,8 +3166,8 @@ def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cud
         s = r0["summary"]
         out["cells"][arch] = {
             "n_layers": cfg.n_layers, "mesh": s["mesh"],
-            "layout": "ssm" if cfg.family == "ssm" else (
-                "seq" if cfg.n_kv_heads % TP_WORLD else "heads"),
+            "layout": "ssm" if cfg.family == "ssm" else "slots on data" if (
+                setup.model_parallel == 1) else "seq" if cfg.n_kv_heads % TP_WORLD else "heads",
             "ms_per_decode_step": s["decode_s"] / steps * 1e3,
             "unsharded_ms_per_decode_step": single["decode_s"] / steps * 1e3,
             "tokens_per_s": s["tokens_per_s"], "unsharded_tokens_per_s": single["tokens_per_s"],
@@ -3041,6 +3176,7 @@ def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cud
             "bf16_err_of_scale_same_experts": held["bfloat16"],
             "bf16_steps_same_experts": [int(rows["bfloat16"].sum()), rows["bfloat16"].numel()],
             "argmax_agreement": agree, "launches": r0["launches"],
+            "lse_launches_per_step": r0["launches"].get("flash_attention_decode_lse", 0) / steps,
             "serve_peak_gib_per_rank": [r[arch]["serve_peak_gib"] for r in ranks],
             "unsharded_serve_peak_gib": single_peak}
         del ref
@@ -3165,6 +3301,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     parity = phase_parity(torch, core, bridge, cfg, *final["l-ds"])
     print(f"phase 4 CUDA vs CPU slots: {json.dumps(parity)} ({time.perf_counter() - t0:.1f} s)")
+    # Phase 17 (b) is host work: it runs beside the card's phases from here
+    # (after the host-clock timings of phases 3-4), at a lower priority.
+    dryruns = start_dryrun()
 
     print(f"phase 5 build (started with phase 1, seconds each): {json.dumps(lm_build_s)}")
     from repro_torch.kernels import _build
@@ -3355,6 +3494,36 @@ def main(argv=None) -> int:
     print(f"phases 15-16 took {time.perf_counter() - t0:.1f} s (phase 16's train cells in "
           f"phase 15's world)")
 
+    t0 = time.perf_counter()
+    split = phase_tp(torch, serve, models, configs, all_kernels, cells=SPLIT_CELLS, phase=17,
+                     setup=SPLIT_SETUP, expected=split_expected)
+    print(f"phase 17 (a) a batch below dp: {split['world']} {split['backend']} ranks on "
+          f"{split['device']}, mesh data {split['world']} x model 1, B {SPLIT_SETUP.batch}, "
+          f"every decode cache's slots split over data [{smi}]")
+    for arch, r in split["cells"].items():
+        print(f"phase 17 (a) {arch} ({r['n_layers']} layers, {r['layout']}): "
+              f"{r['ms_per_decode_step']:.3f} ms per decode step (unsharded "
+              f"{r['unsharded_ms_per_decode_step']:.3f}), lse kernel launches per step "
+              f"{r['lse_launches_per_step']:g}, collectives per step "
+              f"{json.dumps(r['collectives_per_step'])}, float32 {r['f32_err_of_scale']:.3e} "
+              f"of scale from unsharded over {SPLIT_SETUP.steps} steps (limit {TP_F32_TOL:.0e}), "
+              f"bf16 gap {r['bf16_err_of_scale']:.3e}, argmax agreement "
+              f"{json.dumps(r['argmax_agreement'])}, launches {json.dumps(r['launches'])} [{smi}]")
+    print(f"phase 17 (a) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dry = join_dryrun(dryruns)
+    for tag, r in dry.items():
+        rf, mem = r["roofline"], r["memory"]
+        print(f"phase 17 (b) {r['line']}")
+        print(f"phase 17 (b) {tag} projected from the H100 data sheet (not measured): "
+              f"compute {rf['compute_s'] * 1e3:.4f} ms, memory {rf['memory_s'] * 1e3:.4f} ms "
+              f"(counted traffic {rf['memory_s_upper'] * 1e3:.4f} ms), collectives "
+              f"{rf['collective_s'] * 1e3:.4f} ms over InfiniBand ({rf['collective_s_nvlink'] * 1e3:.4f} "
+              f"over NVLink) -> {rf['bottleneck']}; flops a rank "
+              f"{r['cost']['flops_per_device']:.4g}, peak {mem['peak_bytes'] / 2 ** 30:.3f} GiB, "
+              f"fits 80 GB {r['analytic_memory']['fits_hbm']}, host {r['host_s']} s")
+    print(f"phase 17 (b) joined {time.perf_counter() - t0:.1f} s after phase 17 (a)")
+
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -3494,6 +3663,8 @@ def main(argv=None) -> int:
         "replaces": fa_replaces,
         "launches": tp["cells"]["granite-20b"]["launches"]["flash_attention_decode_lse"],
         "launches_per_decode_step": tp["cells"]["granite-20b"]["n_layers"],
+        "launches_split_decode": {arch: r["launches"]["flash_attention_decode_lse"]
+                                  for arch, r in split["cells"].items()},
         "max_abs_err": max(r["max_abs_err"] for r in lse_res.values()),
         "ms": lse["ms"], "device_ms": lse["ms"], "event_ms": lse["event_ms"],
         "plain_ms": lse["plain_ms"], "bound_ms": lse["bound_ms"], "bound_by": lse["bound_by"],
@@ -3534,7 +3705,8 @@ def main(argv=None) -> int:
             "lm_kernels": lm_kres,
             "serve": serve_res, "lm_parity": lm_parity, "fleet": fleet, "train": trn,
             "families": fam, "distributed": dst, "decode_lse": lse_res,
-            "tensor_parallel": tp, "tensor_parallel_15": tp15},
+            "tensor_parallel": tp, "tensor_parallel_15": tp15, "split_decode": split,
+            "dryrun": dry},
             indent=1))
     import torch.distributed as dist
     dist.destroy_process_group()

@@ -107,6 +107,14 @@ class ArchConfig:
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
 
+    def shapes(self) -> dict[str, tuple[int, int, str]]:
+        """The assigned (shape name -> spec) cells of this arch: ``SHAPES``
+        without ``long_500k`` outside ``LONG_CONTEXT_OK``."""
+        out = dict(SHAPES)
+        if self.name not in LONG_CONTEXT_OK:
+            out.pop("long_500k", None)
+        return out
+
     def n_params(self) -> int:
         """Approximate total parameter count."""
         d, ff, v, n_layers = self.d_model, self.d_ff, self.vocab_size, self.n_layers

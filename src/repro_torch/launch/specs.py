@@ -1,9 +1,14 @@
-"""Placements of the serving and training inputs of the port, the
-placement half of ``repro.launch.specs``: ``batch_pspecs``,
-``cache_pspecs`` and ``decode_pspecs`` over name -> shape mappings, with
-tuples of mesh axis names and ``None`` for the JAX package's
-``PartitionSpec`` (a one-name entry is the bare name, as JAX normalises it).
-``mesh`` is a live ``DeviceMesh`` or a mapping of axis name -> size.
+"""Abstract inputs and placements of the serving and training steps of the
+port; counterpart of ``repro.launch.specs``.
+
+``batch_abstract`` and ``decode_abstract`` give a cell's global inputs as
+fake tensors (``torch._subclasses.fake_tensor.FakeTensorMode``: shapes and
+dtypes, no storage, so a 524,288-slot cache allocates nothing), under the
+JAX package's names, shapes and dtypes. ``batch_pspecs``, ``cache_pspecs``
+and ``decode_pspecs`` place them over name -> shape mappings, with tuples
+of mesh axis names and ``None`` for the JAX package's ``PartitionSpec`` (a
+one-name entry is the bare name, as JAX normalises it). ``mesh`` is a live
+``DeviceMesh`` or a mapping of axis name -> size.
 
 Cache sharding policy (decode):
 
@@ -20,10 +25,14 @@ Cache sharding policy (decode):
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Mapping, Optional
 
-from ..parallel.sharding import axis_sizes, batch_axes
+import torch
+
+from ..configs.base import SHAPES
+from ..parallel.sharding import axis_sizes, batch_axes, mesh_context
 
 
 def _entry(axes) -> Any:
@@ -43,6 +52,55 @@ def _shape(leaf) -> tuple[int, ...]:
 def _dp_size(mesh) -> int:
     sizes = axis_sizes(mesh)
     return math.prod(sizes.get(a, 1) for a in batch_axes(mesh))
+
+
+@contextlib.contextmanager
+def abstract():
+    """Tensors made within the block are fake: the ``FakeTensorMode`` that
+    is active, else a new one."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    if detect_fake_mode() is not None:
+        yield
+        return
+    with FakeTensorMode():
+        yield
+
+
+def batch_abstract(cfg, shape_name: str, kind: str) -> dict[str, torch.Tensor]:
+    """The global batch of a train or prefill cell as fake tensors (the JAX
+    package's names, shapes and dtypes)."""
+    seq, gb, _ = SHAPES[shape_name]
+    i32, f32 = torch.int32, torch.float32
+    out: dict[str, torch.Tensor] = {}
+    with abstract():
+        if cfg.family == "vlm":
+            text = seq - cfg.n_img_tokens
+            out["tokens"] = torch.empty((gb, text), dtype=i32)
+            out["patches"] = torch.empty((gb, cfg.n_img_tokens, cfg.d_model), dtype=f32)
+        elif cfg.family == "encdec":
+            text = seq
+            out["tokens"] = torch.empty((gb, seq), dtype=i32)
+            out["frames"] = torch.empty((gb, cfg.enc_ctx, cfg.d_model), dtype=f32)
+        else:
+            text = seq
+            out["tokens"] = torch.empty((gb, seq), dtype=i32)
+        if kind == "train":
+            out["labels"] = torch.empty((gb, text), dtype=i32)
+            out["weights"] = torch.empty((gb,), dtype=f32)
+    return out
+
+
+def decode_abstract(cfg, model, shape_name: str) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """(global cache, (gb, 1) int32 next-token input) of a decode cell as
+    fake tensors: ``model.init_cache(gb, seq)`` (a cache of ``seq`` tokens
+    of context) outside any mesh, ``pos`` as a 0-d int32 tensor as in the
+    JAX package's cache."""
+    seq, gb, _ = SHAPES[shape_name]
+    with abstract(), mesh_context(None):
+        cache = model.init_cache(gb, seq)
+        cache["pos"] = torch.zeros((), dtype=torch.int32)
+        return cache, torch.empty((gb, 1), dtype=torch.int32)
 
 
 def batch_pspecs(cfg, shapes: Mapping[str, Any], mesh) -> dict[str, tuple]:
@@ -131,4 +189,5 @@ def seq_axes(spec: tuple) -> tuple[str, ...]:
     return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-__all__ = ["batch_pspecs", "cache_pspecs", "decode_pspecs", "local_shape", "seq_axes"]
+__all__ = ["abstract", "batch_abstract", "batch_pspecs", "cache_pspecs", "decode_abstract",
+           "decode_pspecs", "local_shape", "seq_axes"]

@@ -21,7 +21,8 @@ its ffn columns, as the transformer's blocks do (``transformer
 by kv head where the kv heads divide over ``model``, else by slots (the
 decode attends over the rank's slots and merges by log-sum-exp,
 ``transformer.seq_attention``); ``prefill_cross`` writes each rank's
-block. A vocabulary that does not divide (whisper's 51,865) leaves the tied
+block. A batch that does not divide over the data-parallel axes splits the
+slots of both caches (the 1,500 frames too) over them as well. A vocabulary that does not divide (whisper's 51,865) leaves the tied
 embedding whole, so the logits are whole on every rank.
 """
 from __future__ import annotations
@@ -35,7 +36,7 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import AttnSpec
-from ..parallel.sharding import tp_copy, tp_rank
+from ..parallel.sharding import axes_index, tp_copy
 from . import layers as L
 from .transformer import (_ffn, _out, _own_kv, _proj, _project_qkv, cached_attention,
                           logits_of, seq_attention)
@@ -194,11 +195,12 @@ def prefill_cross(cfg: ArchConfig, model: EncDecLM, frames: torch.Tensor, cache:
     """Encode the frames once and write every decoder layer's cross-attention
     keys and values into the cache (in place; returned): this rank's kv
     heads, or its block of the encoder's positions where the cache's slots
-    are split over ``model``."""
+    are split (over ``model``, the data-parallel axes or both)."""
     enc_out = encode(cfg, model, frames, impl)
     n = cache["cross_k"].shape[2]
     if n < enc_out.shape[1]:  # this rank's block of positions
-        enc_out = enc_out[:, tp_rank() * n:(tp_rank() + 1) * n]
+        first = axes_index(L.slot_split(cache, "cross_k")[1]) * n
+        enc_out = enc_out[:, first:first + n]
     cdt = L.compute_dtype(cfg)
     shardings = L.layer_shardings(model.dec_blocks)
     for layer, p in enumerate(L.unbind_layers(model.dec_blocks)):
@@ -220,9 +222,9 @@ def decode_step(cfg: ArchConfig, model: EncDecLM, cache: dict, tokens: torch.Ten
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     n_cross = cache["cross_k"].shape[2]
     cross_split = n_cross < cfg.enc_ctx
-    first = tp_rank() * n_cross if cross_split else 0
-    enc_pos = _positions(b, n_cross, x.device) + first
-    slots = cache.get("slots", cache["k"].shape[2])  # global; this rank's are a block
+    cross_axes = L.slot_split(cache, "cross_k")[1]
+    enc_pos = _positions(b, n_cross, x.device) + axes_index(cross_axes) * n_cross
+    slots, axes = L.slot_split(cache, "k")  # global; this rank's are a block
     shardings = L.layer_shardings(model.dec_blocks)
     for layer, p in enumerate(L.unbind_layers(model.dec_blocks)):
         p = L.cast_params(p, cdt, shardings)
@@ -231,13 +233,13 @@ def decode_step(cfg: ArchConfig, model: EncDecLM, cache: dict, tokens: torch.Ten
         q, k_new, v_new = _project_qkv(cfg, h, p, positions, tp)
         attn = cached_attention(q, k_new, v_new, cache["k"][layer], cache["v"][layer],
                                 cache["kv_pos"][layer], slots, min(pos, slots - 1), positions,
-                                _CAUSAL, tp, impl)
+                                _CAUSAL, tp, impl, axes)
         x = x + _out(attn, p["wo"], tp.heads_sharded)
         ck, cv = cache["cross_k"][layer], cache["cross_v"][layer]
         if cross_split:
             ctp = L.local_counts(cfg, p, "cross_")
             hq = _proj(L.rms_norm(x, p["cross_norm"], cfg.norm_eps), p["cross_wq"])
-            attn = seq_attention(hq, ck, cv, positions, enc_pos, _BI, ctp, impl)
+            attn = seq_attention(hq, ck, cv, positions, enc_pos, _BI, ctp, impl, cross_axes)
             x = x + _out(attn, p["cross_wo"], ctp.heads_sharded)
         else:
             x = _attn_apply(cfg, x, p, "cross_", positions, (ck, cv), enc_pos, _BI, impl=impl)

@@ -16,7 +16,10 @@ each rank's heads (``ssm.mamba2_block``; the fused ``in_proj`` held as
 kv heads and ffn columns as the transformer's blocks do; the caches follow
 ``launch.specs.cache_pspecs`` (``conv`` by DI, ``h`` by Mamba-2 head,
 ``attn_k`` / ``attn_v`` by kv head, or by slots where the kv heads do not
-divide: ``transformer.cached_attention``).
+divide: ``transformer.cached_attention``). A batch that does not divide over
+the data-parallel axes splits the attention cache's slots over them too
+(every data rank runs the whole batch; the Mamba-2 states replicate over
+them).
 """
 from __future__ import annotations
 
@@ -105,8 +108,8 @@ def init_params(cfg: ArchConfig, model: HybridLM, gen: torch.Generator) -> Hybri
 
 def _shared_attn_apply(cfg: ArchConfig, x, sp, positions, kv=None, impl: str = "auto"):
     """The shared block over x; ``kv`` = (k cache, v cache, kv_pos, global
-    slot count, slot) in decode, where the new key is written at ``slot``
-    first."""
+    slot count, slot, the mesh axes of a slot split) in decode, where the
+    new key is written at ``slot`` first."""
     tp = L.local_counts(cfg, sp)
     h = L.rms_norm(x, sp["attn_norm"], cfg.norm_eps)
     q, k, v = _project_qkv(cfg, h, sp, positions, tp)
@@ -114,8 +117,9 @@ def _shared_attn_apply(cfg: ArchConfig, x, sp, positions, kv=None, impl: str = "
         attn = flash_attention(q, _own_kv(tp, k), _own_kv(tp, v), positions, positions,
                                _CAUSAL, impl=impl)
     else:
-        kc, vc, pc, slots, slot = kv
-        attn = cached_attention(q, k, v, kc, vc, pc, slots, slot, positions, _CAUSAL, tp, impl)
+        kc, vc, pc, slots, slot, axes = kv
+        attn = cached_attention(q, k, v, kc, vc, pc, slots, slot, positions, _CAUSAL, tp, impl,
+                                axes)
     x = x + _out(attn, sp["wo"], tp.heads_sharded)
     return x + _ffn(cfg, L.rms_norm(x, sp["mlp_norm"], cfg.norm_eps), sp, tp)
 
@@ -169,6 +173,7 @@ def decode_step(cfg: ArchConfig, model: HybridLM, cache: dict, tokens: torch.Ten
     pos = int(cache["pos"])
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     k = cfg.hybrid_attn_every
+    slots, axes = L.slot_split(cache, "attn_k")  # global; this rank's are a block
     sp = L.cast_params(dict(model.shared_attn), cdt,
                        L.layer_shardings(model.shared_attn, stacked=False))
     shardings = L.layer_shardings(model.blocks)
@@ -179,9 +184,8 @@ def decode_step(cfg: ArchConfig, model: HybridLM, cache: dict, tokens: torch.Ten
         cache["h"][layer] = new["h"]
         if (layer + 1) % k == 0:
             g = layer // k
-            kc = cache["attn_k"][g]
-            slots = cache.get("attn_slots", kc.shape[1])  # global; this rank's are a block
             x = _shared_attn_apply(cfg, x, sp, positions, impl=impl, kv=(
-                kc, cache["attn_v"][g], cache["attn_pos"][g], slots, min(pos, slots - 1)))
+                cache["attn_k"][g], cache["attn_v"][g], cache["attn_pos"][g], slots,
+                min(pos, slots - 1), axes))
     cache["pos"] = pos + 1
     return logits_of(cfg, model, x), cache

@@ -208,9 +208,10 @@ def vocab_logits(x: torch.Tensor, head: torch.Tensor, vocab_size: int,
     return tp_all_gather(logits, -1) if block and not _VOCAB_BLOCKS else logits
 
 
-# A decode cache's kv leaves (their slots may be split over model), and the
-# key leaves among them: "k0" / "k" / "attn_k" / "cross_k" record their
-# global slot count under "slots0" / "slots" / "attn_slots" / "cross_slots".
+# A decode cache's kv leaves (their slots may be split over mesh axes), and
+# the key leaves among them: "k0" / "k" / "attn_k" / "cross_k" record their
+# global slot count under "slots0" / "slots" / "attn_slots" / "cross_slots"
+# and the axes of the split under "slot_axes0" / ... / "cross_slot_axes".
 _KV_LEAF = re.compile(r"((attn|cross)_)?(k|v|kv_pos)\d*|attn_pos")
 _K_LEAF = re.compile(r"((?:attn|cross)_)?k(\d*)")
 
@@ -219,8 +220,10 @@ def alloc_cache(cfg, leaves: dict, batch: int, device) -> dict:
     """A decode cache from ``leaves`` (name -> (global shape, dtype, fill
     value)) of global batch ``batch``: whole without a mesh; under a live
     mesh each rank's block as ``launch.specs.cache_pspecs`` places it, and
-    for every key leaf whose slots are split over ``model`` its global slot
-    count (``_K_LEAF``). Raises under ``fsdp`` on a ``model`` axis above 1
+    for every key leaf whose slots are split (over ``model``, over the
+    data-parallel axes where the batch does not divide over them, or over
+    both) its global slot count and the axes of the split (``_K_LEAF``).
+    Raises under ``fsdp`` on a ``model`` axis above 1
     (``sharding.check_decode``)."""
     mesh = current_mesh()
     check_decode(mesh)
@@ -229,18 +232,25 @@ def alloc_cache(cfg, leaves: dict, batch: int, device) -> dict:
                 for k, (shape, dt, fill) in leaves.items()}
     from ..launch.specs import cache_pspecs, local_shape, seq_axes
     specs = cache_pspecs(cfg, {k: v[0] for k, v in leaves.items()}, mesh, batch)
+    sizes = axis_sizes(mesh)
     out: dict[str, Any] = {}
     for k, (shape, dt, fill) in leaves.items():
-        axes = seq_axes(specs[k]) if len(shape) >= 3 and _KV_LEAF.fullmatch(k) else ()
-        if any(a != "model" for a in axes):
-            raise NotImplementedError(
-                f"a cache whose slots are split over the data-parallel axes (a batch of "
-                f"{batch} that does not divide over them) is not ported")
         out[k] = torch.full(local_shape(shape, specs[k], mesh), fill, dtype=dt, device=device)
+        axes = seq_axes(specs[k]) if len(shape) >= 3 and _KV_LEAF.fullmatch(k) else ()
         key = _K_LEAF.fullmatch(k)
-        if key and axes and axis_sizes(mesh)["model"] > 1:
+        if key and math.prod(sizes[a] for a in axes) > 1:
             out[f"{key.group(1) or ''}slots{key.group(2)}"] = shape[2]
+            out[f"{key.group(1) or ''}slot_axes{key.group(2)}"] = axes
     return out
+
+
+def slot_split(cache: dict, key: str) -> tuple[int, tuple[str, ...]]:
+    """(global slot count, mesh axes its slots are split over) of the key
+    leaf ``key`` of a decode cache (layer-stacked); (its slot count, ())
+    where each rank holds every slot."""
+    m = _K_LEAF.fullmatch(key)
+    pre, i = m.group(1) or "", m.group(2)
+    return cache.get(f"{pre}slots{i}", cache[key].shape[2]), cache.get(f"{pre}slot_axes{i}", ())
 
 
 def apply_layers(cfg, blocks, x: torch.Tensor, layer_fn: Callable, group: int = 1,

@@ -39,6 +39,15 @@ patch embeddings, ``vlm.py``).
     returns (o, log-sum-exp) from the decode kernel, and the ranks' partials
     are merged by log-sum-exp before each rank takes its head block into
     ``wo``.
+  * A batch that does not divide over the data-parallel axes (a batch below
+    dp, long_500k's batch of 1): every data rank serves the whole batch and
+    the cache's slots are split over the data axes too (``cache_pspecs``),
+    after them ``model`` where the kv heads do not divide. The owner of a
+    slot is the rank's row-major index over those axes
+    (``sharding.axes_index``), and the partials are merged over their group
+    (``sharding.slot_all_gather``); with the kv heads on ``model`` and the
+    slots on the data axes alone each ``model`` rank keeps its heads and
+    merges over the data axes.
 """
 from __future__ import annotations
 
@@ -51,7 +60,8 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.flash_attention.ref import AttnSpec
-from ..parallel.sharding import sharding_of, tp_all_gather, tp_copy
+from ..parallel.sharding import (axes_index, sharding_of, slot_all_gather, tp_all_gather,
+                                 tp_copy)
 from . import layers as L
 from . import moe
 
@@ -226,36 +236,43 @@ def merge_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
     return (o.float() * w[..., None]).sum(dim=0) / w.sum(dim=0)[..., None]
 
 
-def seq_attention(q, kc, vc, positions, pc, spec, tp, impl):
-    """Decode attention over a cache whose slots are split over ``model``:
-    every q head (gathered where they are a block) over this rank's slots,
-    (o, lse) merged over the ranks by one all-gather, then this rank's
-    block of heads."""
-    if tp.heads_sharded:
+def seq_attention(q, kc, vc, positions, pc, spec, tp, impl, axes=("model",)):
+    """Decode attention over a cache whose slots are split over the mesh
+    axes ``axes``: this rank's q heads (every q head, gathered over
+    ``model``, where ``model`` splits the slots and the heads are a block)
+    over this rank's slots, (o, lse) merged over the ranks of ``axes`` by
+    one all-gather (``sharding.slot_all_gather``), then this rank's block
+    of heads."""
+    gathered = tp.heads_sharded and "model" in axes
+    if gathered:
         q = tp_all_gather(q, 2)
+    else:  # the kv heads of this rank's q heads
+        kc, vc = _own_kv(tp, kc), _own_kv(tp, vc)
     o, lse = flash_attention(q, kc, vc, positions, pc, spec, kv_valid=pc >= 0, impl=impl,
                              return_lse=True)
     part = torch.cat([o.float(), lse[..., None]], dim=-1)  # (B, 1, H, hd + 1)
-    parts = tp_all_gather(part[None], 0)
+    parts = slot_all_gather(part[None], axes)
     out = merge_partials(parts[..., :-1], parts[..., -1]).to(q.dtype)
-    return out[:, :, tp.q0:tp.q0 + tp.heads] if tp.heads_sharded else out
+    return out[:, :, tp.q0:tp.q0 + tp.heads] if gathered else out
 
 
 def cached_attention(q, k_new, v_new, kc, vc, pc, slots: int, slot: int, positions,
-                     spec: AttnSpec, tp: L.LocalCounts, impl: str = "auto"):
+                     spec: AttnSpec, tp: L.LocalCounts, impl: str = "auto",
+                     axes: tuple[str, ...] = ()):
     """One decode step's attention over a KV cache of ``slots`` global
-    slots (this rank's block of them where ``kc`` holds fewer): the new
-    key and value are written at global ``slot`` where this rank owns it,
-    then q attends over the cache (``seq_attention`` where the slots are
-    split; else over the kv heads of this rank's q block)."""
+    slots (this rank's block of them, split over the mesh axes ``axes``,
+    where ``kc`` holds fewer): the new key and value are written at global
+    ``slot`` where this rank owns it (block ``axes_index(axes)``), then q
+    attends over the cache (``seq_attention`` where the slots are split;
+    else over the kv heads of this rank's q block)."""
     split = slots != kc.shape[1]
-    slot -= tp.rank * kc.shape[1] if split else 0
+    slot -= axes_index(axes) * kc.shape[1] if split else 0
     if 0 <= slot < kc.shape[1]:  # this rank owns the slot
         kc[:, slot] = k_new[:, 0].to(kc.dtype)
         vc[:, slot] = v_new[:, 0].to(vc.dtype)
         pc[:, slot] = positions[:, 0]
     if split:
-        return seq_attention(q, kc, vc, positions, pc, spec, tp, impl)
+        return seq_attention(q, kc, vc, positions, pc, spec, tp, impl, axes)
     return flash_attention(q, _own_kv(tp, kc), _own_kv(tp, vc), positions, pc, spec,
                            kv_valid=pc >= 0, impl=impl)
 
@@ -313,8 +330,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=Non
     (L / group, B, slots, Hkv, hd) and ``kv_pos{i}`` (L / group, B, slots),
     -1 for an empty slot; windowed layers get W slots. ``pos`` is the
     number of tokens decoded so far. Under a mesh each rank holds its block
-    (``layers.alloc_cache``; ``slots{i}``: the global slot count where the
-    slots are split over ``model``)."""
+    (``layers.alloc_cache``; ``slots{i}`` / ``slot_axes{i}``: the global
+    slot count and the mesh axes where the slots are split)."""
     dt = dtype or L.compute_dtype(cfg)
     specs = attn_specs(cfg)
     n = cfg.n_layers // len(specs)
@@ -346,12 +363,12 @@ def decode_step(cfg: ArchConfig, model: DenseLM, cache: dict, tokens: torch.Tens
         p = L.cast_params(p, cdt, shardings)
         tp = L.local_counts(cfg, p)
         kc, vc, pc = cache[f"k{i}"][li], cache[f"v{i}"][li], cache[f"kv_pos{i}"][li]
-        slots = cache.get(f"slots{i}", kc.shape[1])  # global; this rank's are a block
+        slots, axes = L.slot_split(cache, f"k{i}")  # global; this rank's are a block
         slot = pos % slots if spec.window > 0 else min(pos, slots - 1)
         h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
         q, k_new, v_new = _project_qkv(cfg, h, p, positions, tp)
         attn = cached_attention(q, k_new, v_new, kc, vc, pc, slots, slot, positions, spec, tp,
-                                impl)
+                                impl, axes)
         x = _residual_tail(cfg, x, _out(attn, p["wo"], tp.heads_sharded), p, tp)
     cache["pos"] = pos + 1
     return logits_of(cfg, model, x), cache

@@ -53,6 +53,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
 _MESH: Any = None
 # Parallelism style (the JAX package's):
@@ -616,16 +617,34 @@ def axes_group(mesh, axes: tuple[str, ...]):
         return mesh.get_group(axes[0])
     made = mesh.__dict__.setdefault("_axes_groups", {})
     if axes not in made:
-        names = list(mesh.mesh_dim_names)
-        idx = [names.index(a) for a in axes]
-        ranks = mesh.mesh.movedim(idx, list(range(-len(idx), 0)))
-        for row in ranks.reshape(-1, math.prod(ranks.shape[-len(idx):])).tolist():
-            group = dist.new_group(row)
-            if dist.get_rank() in row:
-                if row != sorted(row):  # a group ranks its members in rank order
-                    raise ValueError(f"the ranks {row} of the axes {axes} are not in rank order")
-                made[axes] = group
+        with _disable_current_modes():  # host bookkeeping, also under a fake tensor mode
+            names = list(mesh.mesh_dim_names)
+            idx = [names.index(a) for a in axes]
+            ranks = mesh.mesh.movedim(idx, list(range(-len(idx), 0)))
+            for row in ranks.reshape(-1, math.prod(ranks.shape[-len(idx):])).tolist():
+                group = dist.new_group(row)
+                if dist.get_rank() in row:
+                    if row != sorted(row):  # a group ranks its members in rank order
+                        raise ValueError(f"the ranks {row} of the axes {axes} are not in rank "
+                                         f"order")
+                    made[axes] = group
     return made[axes]
+
+
+def axes_index(axes: tuple[str, ...]) -> int:
+    """This rank's row-major linear index over ``axes`` of the installed
+    mesh (its rank in ``axes_group``; 0 without a mesh or axes)."""
+    return _coord(_MESH, axes)[0] if _MESH is not None and axes else 0
+
+
+def slot_all_gather(x: torch.Tensor, axes: tuple[str, ...]) -> torch.Tensor:
+    """The blocks of ``x`` of every rank over the mesh axes ``axes`` (a
+    decode cache's slot split), concatenated along dim 0 in their linear
+    order: ``tp_all_gather`` where the axes are ``model`` alone, else one
+    all-gather over ``axes_group``, counted as ``slot_all_gather``."""
+    if tuple(axes) == ("model",):
+        return tp_all_gather(x, 0)
+    return all_gather(x, 0, axes_group(_MESH, tuple(axes)), key="slot_all_gather")
 
 
 def _join(x: torch.Tensor, d: int, segs=()) -> torch.Tensor:

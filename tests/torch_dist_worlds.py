@@ -254,6 +254,60 @@ def tp_serving(cases) -> list:
     return out
 
 
+def split_decode(cases) -> list:
+    """Each case (dict: cfg fields, the JAX package's parameter tree as
+    numpy, mesh shape and names, style, decode tokens (B, steps) of a batch
+    that does not divide over the data-parallel axes, cache length, an
+    encoder-decoder's frames) on its mesh: the port's model from
+    ``bridge.lm_params_from_numpy`` sharded by ``shard_params``, every rank
+    decoding the whole batch; the cache's block shapes and slot keys, every
+    teacher-forced step's logits and collectives, and the greedy tokens of
+    ``make_serve_step``."""
+    from repro_torch import bridge
+    from repro_torch.configs import ArchConfig
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import build_model, encdec
+    from repro_torch.parallel import sharding
+
+    out = []
+    for case in cases:
+        mesh = init_device_mesh("cpu", case["mesh_shape"], mesh_dim_names=case["mesh_names"])
+        cfg = ArchConfig(**case["cfg"])
+        api = build_model(cfg, device="cpu")
+        model = bridge.lm_params_from_numpy(cfg, case["tree"], "cpu")
+        tokens = torch.as_tensor(case["decode"])
+        res = {}
+        with sharding.mesh_context(mesh, case["style"]), torch.no_grad():
+            sharding.shard_params(model, mesh)
+
+            def new_cache():
+                cache = api.init_cache(tokens.shape[0], case["max_len"])
+                if "frames" in case:
+                    cache = encdec.prefill_cross(cfg, model, torch.as_tensor(case["frames"]),
+                                                 cache)
+                return cache
+
+            cache = new_cache()
+            res["cache_shapes"] = {k: tuple(v.shape) for k, v in cache.items()
+                                   if isinstance(v, torch.Tensor)}
+            res["cache_slots"] = {k: v for k, v in cache.items() if "slot" in k}
+            steps, comm = [], []
+            for t in range(tokens.shape[1]):
+                sharding.reset_comm_counts()
+                logits, cache = api.decode_step(model, cache, tokens[:, t:t + 1])
+                comm.append(dict(sharding.comm_counts))
+                steps.append(logits.numpy())
+            res["decode"], res["comm"] = np.stack(steps), comm
+            step = make_serve_step(api)
+            cache, tok, greedy = new_cache(), tokens[:, :1], []
+            for _ in range(tokens.shape[1]):
+                tok, cache = step(model, cache, tok)
+                greedy.append(tok.numpy())
+            res["greedy"] = np.concatenate(greedy, axis=1)
+        out.append(res)
+    return out
+
+
 def tp_train(cases) -> list:
     """Each case (dict: cfg fields, the port's weights as numpy, the global
     batch, mesh shape, optional ``style`` (default tp), ``save`` /
@@ -530,4 +584,4 @@ def several(tasks) -> list:
 TASKS = {"int8_sum": int8_sum, "train_steps": train_steps, "moe_dispatch": moe_dispatch,
          "fleets": fleets, "train_main": train_main, "several": several,
          "tp_serving": tp_serving, "serve_main": serve_main, "tp_train": tp_train,
-         "vocab_ce": vocab_ce}
+         "vocab_ce": vocab_ce, "split_decode": split_decode}
