@@ -165,6 +165,20 @@ Phases, each fatal on failure:
      train_4k on the pod mesh, mixtral-8x7b long_500k on the pod mesh and
      minitron-4b decode_32k on the multipod mesh: each must print ``OK``;
      its roofline is printed as a projection from the H100 data sheet.
+ 18. the other families trained through ``repro_torch.launch.train`` at
+     their published widths, as phase 11 trains minitron-4b (B 16 x 128,
+     bf16 compute, per-layer remat, under the (1, 1) mesh), 4 steps with a
+     DS slot every 2: gemma2-27b at 4 of 46 layers (two local, two global;
+     soft-caps, a float32 stream), mixtral-8x7b at 2 of 32, zamba2-2.7b,
+     whisper-base (1,500 frames a row) and paligemma-3b (256 patches a row)
+     whole; per arch 4 finite losses, the peak under 95 % of the card,
+     exact launches (each attention call on the kernel ``kernel.variant``
+     gives it, twice a step under remat, counted from the config; DS's
+     matchers once a slot; no scan), ms per step, tokens/s; each arch's
+     reduced float32 train step on the card against the CPU as phase 11
+     holds minitron-4b's (an MoE's routing equal on both sides); and
+     ``repro_torch.examples.quickstart`` on the card at 60 slots (exact
+     matcher launches, DS's unit cost below CU_FULL's).
 Phase 6 also holds the decode kernel's log-sum-exp output against its plain
 version (granite-20b's decode on one of phase 14's ranks, a row that sees
 no key, a rank's half of a 32,768-slot cache).
@@ -1841,6 +1855,8 @@ TRAIN_ARGV = ["--arch", "minitron-4b", "--batch", "16", "--seq", "128", "--n-cu"
               "--log-every", "100"]
 TRAIN_MEMORY_SHARE = 0.95  # of the card's memory; above it the run is cut to 16 layers
 TRAIN_CUT_LAYERS = 16
+# DS's matcher launches a scheduler slot (train.main schedules with DS).
+DS_PER_SLOT = {"greedy_collection": 1, "greedy_assignment": 0, "greedy_pairing": 1}
 # The reduced card step against the CPU's: float32 both, other summation
 # orders (loss relative; gradients, moments and parameters of each leaf's
 # scale; parameters where |g| is above the gradients' tolerance, as
@@ -1899,9 +1915,9 @@ def train_full_width(torch, train, configs, kernels, n_layers: int) -> dict:
     peak = torch.cuda.max_memory_allocated()
     layers, steps = summary["n_layers"], len(summary["losses"])
     slots = summary["sched_slots"]
-    per_slot = {"greedy_collection": 1, "greedy_assignment": 0, "greedy_pairing": 1}
-    want = {"flash_attention": 2 * layers * steps, "flash_attention_wgmma": 2 * layers * steps,
-            **{k: n * slots for k, n in per_slot.items()}}
+    cfg = dataclasses.replace(configs.get_config("minitron-4b"), n_layers=layers)
+    want = {**train_attention_launches(cfg, 128, steps),
+            **{k: n * slots for k, n in DS_PER_SLOT.items()}}
     launched = expect_counts(kernels, f"minitron-4b training, {layers} layers", want)
     if steps != 8 or not all(math.isfinite(x) for x in summary["losses"]):
         fail(f"training: losses {summary['losses']} are not 8 finite values")
@@ -1911,15 +1927,19 @@ def train_full_width(torch, train, configs, kernels, n_layers: int) -> dict:
             "tokens_per_s": 16 * 128 / (sum(ms) / len(ms) / 1e3), "run_s": run_s,
             "peak_bytes": peak, "peak_gib": peak / 2 ** 30, "launches": launched,
             "wgmma_per_step": launched["flash_attention_wgmma"] / steps,
-            "matcher_launches_per_slot": {k: launched[k] / slots for k in per_slot},
+            "matcher_launches_per_slot": {k: launched[k] / slots for k in DS_PER_SLOT},
             "slots": slots}
 
 
-def profile_train_step(torch, api, train, steps, optim, kernels, n_layers, mesh=None) -> dict:
-    """Train steps of the same model and a batch of the run's sampler: the
-    host-clock time of three steps after a warm one (their median is
-    ``unprofiled_step_ms``), then one profiled step: device busy time,
-    launches, busy share; the wgmma launches of one step counted. With
+def profile_train_step(torch, api, train, steps, optim, kernels, mesh=None,
+                       match: str = "flash_fwd_sm90_kernel") -> dict:
+    """Train steps of the same model and a batch of the run's sampler (an
+    encoder-decoder's frames or a VLM's patches as ``train._stub_input``
+    draws them): the host-clock time of three steps after a warm one (their
+    median is ``unprofiled_step_ms``), then one profiled step: device busy
+    time, launches, busy share, the time and launches of the kernels whose
+    name holds ``match``; the attention launches of one step counted
+    exactly (``train_attention_launches``). With
     ``mesh``, the model's blocks are sharded and the steps run under it
     (the profile then matches the NCCL kernels); without, the step's
     forward, backward and AdamW spans follow."""
@@ -1945,11 +1965,14 @@ def profile_train_step(torch, api, train, steps, optim, kernels, n_layers, mesh=
     host = sampler.sample(types.SimpleNamespace(x=np.ones((12, 2), np.float32),
                                                 y=np.zeros((12, 2, 2), np.float32)))
     batch = {k: torch.as_tensor(host[k], device="cuda") for k in ("tokens", "labels", "weights")}
+    stub = train._stub_input(types.SimpleNamespace(seed=0, batch=16), cfg, 0, "cuda")
+    if stub is not None:
+        batch["frames" if cfg.family == "encdec" else "patches"] = stub
     reset_counts(*kernels)
     state, opt, met = step(state, opt, batch)
     torch.cuda.synchronize()
-    per_step = expect_counts(kernels, "one train step", {
-        "flash_attention": 2 * n_layers, "flash_attention_wgmma": 2 * n_layers})
+    per_step = expect_counts(kernels, f"one {cfg.name} train step",
+                             train_attention_launches(cfg, 128, 1))
 
     def one():
         nonlocal state, opt, met
@@ -1963,7 +1986,7 @@ def profile_train_step(torch, api, train, steps, optim, kernels, n_layers, mesh=
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     step_ms = sorted(times)[1]
-    prof = profile_window(torch, one, match="flash_fwd_sm90_kernel" if mesh is None else "nccl")
+    prof = profile_window(torch, one, match=match if mesh is None else "nccl")
     if mesh is not None:
         out = {**prof, "unprofiled_step_ms": step_ms, "step_ms": times, "launches": per_step,
                "busy_share_of_unprofiled_step": prof["device_busy_ms"] / step_ms,
@@ -2001,47 +2024,106 @@ def profile_train_step(torch, api, train, steps, optim, kernels, n_layers, mesh=
     return out
 
 
-def train_card_vs_cpu(torch, models, configs, steps, optim, kernels) -> dict:
-    """Reduced minitron-4b in float32, the same weights and batch: the loss,
-    the gradients and one train step (moments, updated parameters) on the
-    card (kernels) and on the CPU (plain versions)."""
-    cfg = configs.reduced(configs.get_config("minitron-4b"))
+def attention_calls(cfg, seq: int) -> list:
+    """(type, head dim, query rows) of each attention call of one forward of
+    ``cfg`` over ``seq`` tokens, as the models make them: one call a layer,
+    in the compute type, or in float32 where the embedding scale promotes
+    the stream (gemma2, paligemma), a VLM's patches ahead of its tokens; the
+    hybrid's shared block once a group; the encoder-decoder's encoder over
+    its frames in float32 (its position table promotes), then per decoder
+    layer a causal self-attention in the compute type and a cross-attention
+    in float32 (the float32 keys promote the query)."""
+    import torch
+    from repro_torch.models import hybrid
+    cdt, hd = getattr(torch, cfg.compute_dtype), cfg.head_dim
+    if cfg.family == "hybrid":
+        return [(cdt, hd, seq)] * hybrid.n_groups(cfg)
+    if cfg.family == "encdec":
+        return ([(torch.float32, hd, cfg.enc_ctx)] * cfg.n_enc_layers
+                + [(cdt, hd, seq), (torch.float32, hd, seq)] * cfg.n_layers)
+    stream = torch.float32 if cfg.scale_embed else cdt
+    rows = seq + (cfg.n_img_tokens if cfg.family == "vlm" else 0)
+    return [(stream, hd, rows)] * cfg.n_layers
+
+
+def train_attention_launches(cfg, seq: int, forwards: int) -> dict:
+    """Exact attention launches of ``forwards`` differentiated forwards of
+    ``cfg`` over ``seq`` tokens: each call on the kernel that
+    ``kernel.variant`` gives it, twice under remat (the backward's
+    recompute)."""
+    from repro_torch.kernels.flash_attention.kernel import variant
+    routes = [variant(*call) for call in attention_calls(cfg, seq)]
+    n = forwards * (2 if cfg.remat else 1)
+    return attn_counts(simt=n * routes.count("simt"), wgmma=n * routes.count("wgmma"))
+
+
+def train_card_vs_cpu(torch, models, configs, steps, optim, kernels,
+                      arch: str = "minitron-4b", device: str = "cuda") -> dict:
+    """Reduced ``arch`` in float32, the same weights and batch (an
+    encoder-decoder's frames or a VLM's patches as ``train._stub_input``
+    draws them for step 0): the loss, the gradients and one train step
+    (moments, updated parameters) on the card (kernels) and on the CPU
+    (plain versions), with exact attention launches on the card. An MoE's
+    routing of every call is recorded on both sides and must be equal: a
+    flip fails as a flip."""
+    import types
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    cfg = configs.reduced(configs.get_config(arch))
     rng = np.random.default_rng(11)
     tokens = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
     labels = np.roll(tokens, -1, axis=1)
     labels[:, -1] = -1
     weights = np.array([1.3, 0.0, 0.7, 2.0], np.float32)
+    stub = train._stub_input(types.SimpleNamespace(seed=0, batch=4), cfg, 0, "cpu")
     res = {}
     weights0 = models.build_model(cfg, device="cpu").init(0).state_dict()
-    for dev in ("cuda", "cpu"):
+    for side, dev in (("card", device), ("cpu", "cpu")):
         api = models.build_model(cfg, device=dev)
         model = models.new_model(cfg, dev)
         model.load_state_dict(weights0)
         batch = {"tokens": torch.as_tensor(tokens, device=dev),
                  "labels": torch.as_tensor(labels, device=dev),
                  "weights": torch.as_tensor(weights, device=dev)}
-        if dev == "cuda":
+        if stub is not None:
+            batch["frames" if cfg.family == "encdec" else "patches"] = stub.to(dev)
+        if side == "card":
             reset_counts(*kernels)
         model.requires_grad_(True)
         named = dict(model.named_parameters())
-        loss, _ = api.loss(model, batch)
-        grads = torch.autograd.grad(loss, list(named.values()))
-        p0 = {k: p.detach().cpu().clone() for k, p in named.items()}
-        opt = optim.adamw_init(model)
-        model, opt, met = steps.make_train_step(api, optim.AdamWConfig(), total_steps=10)(
-            model, opt, batch)
-        res[dev] = {"loss": float(loss.detach()), "step_loss": float(met["loss"]),
-                    "grads": {k: g.cpu() for k, g in zip(named, grads)}, "p0": p0,
-                    "params": {k: p.detach().cpu() for k, p in model.named_parameters()},
-                    "m": {k: t.cpu() for k, t in opt.m.items()},
-                    "v": {k: t.cpu() for k, t in opt.v.items()}}
-        if dev == "cuda":
-            n = cfg.n_layers  # float32: the SIMT kernel, once a layer a forward
-            launched = expect_counts(kernels, "reduced train step", {"flash_attention": 2 * n})
-    card, cpu = res["cuda"], res["cpu"]
+        with moe.recording_routing() as routing:
+            loss, _ = api.loss(model, batch)
+            grads = torch.autograd.grad(loss, list(named.values()))
+            p0 = {k: p.detach().cpu().clone() for k, p in named.items()}
+            opt = optim.adamw_init(model)
+            model, opt, met = steps.make_train_step(api, optim.AdamWConfig(), total_steps=10)(
+                model, opt, batch)
+        res[side] = {"loss": float(loss.detach()), "step_loss": float(met["loss"]),
+                     "grads": {k: g.cpu() for k, g in zip(named, grads)}, "p0": p0,
+                     "params": {k: p.detach().cpu() for k, p in model.named_parameters()},
+                     "m": {k: t.cpu() for k, t in opt.m.items()},
+                     "v": {k: t.cpu() for k, t in opt.v.items()},
+                     "routing": [(i.cpu(), kept.cpu()) for i, kept in routing]}
+        if side == "card":  # float32: the SIMT kernel, the loss's forward and the step's
+            launched = expect_counts(kernels, f"reduced {arch} train step",
+                                     train_attention_launches(cfg, tokens.shape[1], 2))
+    card, cpu = res["card"], res["cpu"]
+    routing = None
+    if cfg.family == "moe":
+        flips = [c for c, ((ig, kg), (ic, kc)) in enumerate(zip(card["routing"], cpu["routing"]))
+                 if not (torch.equal(ig, ic) and torch.equal(kg, kc))]
+        if len(card["routing"]) != len(cpu["routing"]) or len(cpu["routing"]) != 2 * cfg.n_layers:
+            fail(f"reduced {arch} train step: {len(card['routing'])} routed calls on the card, "
+                 f"{len(cpu['routing'])} on the CPU, expected {2 * cfg.n_layers}")
+        if flips:
+            fail(f"reduced {arch} train step: the card and the CPU routed tokens to other "
+                 f"experts (a flip) in calls {flips}")
+        routing = {"calls": len(cpu["routing"]), "equal": True,
+                   "dropped": int(sum(int((~kc).sum()) for _, kc in cpu["routing"]))}
     loss_rel = max(abs(card[k] - cpu[k]) / abs(cpu[k]) for k in ("loss", "step_loss"))
     if loss_rel > TRAIN_LOSS_TOL:
-        fail(f"reduced train step: card and CPU losses differ by {loss_rel:.3e} (relative)")
+        fail(f"reduced {arch} train step: card and CPU losses differ by {loss_rel:.3e} "
+             f"(relative)")
     worst = {"grads": 0.0, "m": 0.0, "v_root": 0.0, "params": 0.0}
     flips = 0
     for k, g in cpu["grads"].items():
@@ -2055,16 +2137,17 @@ def train_card_vs_cpu(torch, models, configs, steps, optim, kernels) -> dict:
             worst["params"] = max(worst["params"], err)
         flip = torch.sign(got - card["p0"][k]) != torch.sign(want - cpu["p0"][k])
         if bool((flip & above).any()):
-            fail(f"reduced train step: {k} moved the other way where |g| is above "
+            fail(f"reduced {arch} train step: {k} moved the other way where |g| is above "
                  f"{TRAIN_LEAF_TOL} of its scale")
         flips += int(flip.sum())
     bad = {k: v for k, v in worst.items() if v > TRAIN_LEAF_TOL}
     if bad:
-        fail(f"reduced train step: card and CPU differ by {bad} of each leaf's scale "
+        fail(f"reduced {arch} train step: card and CPU differ by {bad} of each leaf's scale "
              f"(limit {TRAIN_LEAF_TOL})")
     return {"loss_rel_err": loss_rel, "err_of_leaf_scale": worst,
             "sign_flips_below_noise": flips, "launches": launched,
-            "loss": card["loss"], "tol": {"loss": TRAIN_LOSS_TOL, "leaf": TRAIN_LEAF_TOL}}
+            "loss": card["loss"], "tol": {"loss": TRAIN_LOSS_TOL, "leaf": TRAIN_LEAF_TOL},
+            **({"routing": routing} if routing else {})}
 
 
 def train_resume(torch, train, kernels, workdir: Path) -> dict:
@@ -2225,11 +2308,10 @@ def phase_train(torch, models, configs, steps, kernels, fkernel, fops, fref, sop
     cfg = configs.get_config("minitron-4b")
     cfg = dataclasses.replace(cfg, n_layers=full["summary"]["n_layers"])
     out["profile"] = profile_train_step(torch, models.build_model(cfg), train, steps, optim,
-                                        kernels, cfg.n_layers)
+                                        kernels)
     from repro_torch.launch import mesh as lmesh
     out["profile_mesh"] = profile_train_step(torch, models.build_model(cfg), train, steps,
-                                             optim, kernels, cfg.n_layers,
-                                             mesh=lmesh.make_host_mesh())
+                                             optim, kernels, mesh=lmesh.make_host_mesh())
     out["card_vs_cpu"] = train_card_vs_cpu(torch, models, configs, steps, optim, kernels)
     out["resume"] = train_resume(torch, train, kernels, ROOT / "build" / "chip_smoke_resume")
     out["attention"] = attention_train_shape(torch, fops, fref, fkernel)
@@ -3185,6 +3267,140 @@ def phase_tp(torch, serve, models, configs, kernels, cells=TP_CELLS, device="cud
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 18: the other families trained at their published widths
+# --------------------------------------------------------------------------
+
+TRAIN18_STEPS = 4
+TRAIN18_ARGV = list(TRAIN_ARGV)
+TRAIN18_ARGV[TRAIN18_ARGV.index("--steps") + 1] = str(TRAIN18_STEPS)
+TRAIN18_ARGV[TRAIN18_ARGV.index("--slot-every") + 1] = "2"
+# arch -> layers kept (0: all). gemma2-27b (46 layers, 27 B parameters) and
+# mixtral-8x7b (32 layers, 47 B) cannot train on one card at about 16 bytes a
+# parameter (float32 weights, AdamW's m and v, the gradient): 4 layers of
+# gemma2-27b (two local, two global) are 3.4 B parameters, 2 of
+# mixtral-8x7b 3.2 B. The other three train whole.
+TRAIN18_CELLS = (("gemma2-27b", 4), ("mixtral-8x7b", 2), ("zamba2-2.7b", 0),
+                 ("whisper-base", 0), ("paligemma-3b", 0))
+# The quickstart's slots and its specs' matcher launches a slot: L-DS adds
+# its virtual plain-P1 assignment and a second pairing; CU_FULL collects
+# without a matcher.
+QUICKSTART_SLOTS = 60
+QUICKSTART_PER_SLOT = {
+    "ds": DS_PER_SLOT,
+    "l-ds": {"greedy_collection": 1, "greedy_assignment": 1, "greedy_pairing": 2},
+    "cufull": {"greedy_collection": 0, "greedy_assignment": 0, "greedy_pairing": 1}}
+
+
+def train18_cell(torch, train, configs, kernels, arch: str, layers: int, total: int) -> dict:
+    """``train.main`` on ``arch`` at its published widths (its first
+    ``layers`` layers, registered as ``<arch>-<layers>l``, when not 0),
+    B 16 x 128, 4 steps, DS every 2: the losses finite, the peak under
+    TRAIN_MEMORY_SHARE of the card, exact launches (``train_attention_launches``
+    of 4 steps, DS's matchers per slot, no scan)."""
+    import gc
+    cfg = configs.get_config(arch)
+    if layers:
+        cfg = configs.register(dataclasses.replace(cfg, name=f"{arch}-{layers}l",
+                                                   n_layers=layers))
+    argv = list(TRAIN18_ARGV)
+    argv[argv.index("--arch") + 1] = cfg.name
+    batch, seq = (int(argv[argv.index(k) + 1]) for k in ("--batch", "--seq"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    summary = train.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps, slots = len(summary["losses"]), summary["sched_slots"]
+    want = {**train_attention_launches(cfg, seq, steps),
+            **{k: n * slots for k, n in DS_PER_SLOT.items()}}
+    launched = expect_counts(kernels, f"{cfg.name} training", want)
+    if steps != TRAIN18_STEPS or not all(math.isfinite(x) for x in summary["losses"]):
+        fail(f"{cfg.name} training: losses {summary['losses']} are not {TRAIN18_STEPS} finite "
+             f"values")
+    if peak >= TRAIN_MEMORY_SHARE * total:
+        fail(f"{cfg.name} training: peak {peak / 2 ** 30:.2f} GiB is at or above "
+             f"{TRAIN_MEMORY_SHARE:.0%} of the card's {total / 2 ** 30:.2f} GiB: keep a layer "
+             f"less")
+    ms = sorted(summary["step_ms"][1:])[len(summary["step_ms"][1:]) // 2]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "n_layers": summary["n_layers"],
+            "losses": summary["losses"], "step_ms": summary["step_ms"], "ms_per_step": ms,
+            "tokens_per_s": batch * seq / (ms / 1e3), "run_s": run_s, "peak_bytes": peak,
+            "peak_gib": peak / 2 ** 30, "peak_share": peak / total, "launches": launched,
+            "attention_per_step": {k: v / steps for k, v in launched.items()
+                                   if k.startswith("flash_")},
+            "matcher_launches_per_slot": {k: launched[k] / slots for k in DS_PER_SLOT},
+            "slots": slots, "sched_cost": summary["sched_cost"],
+            "sched_trained": summary["sched_trained"]}
+
+
+def quickstart_on_card(torch, kernels) -> dict:
+    """``repro_torch.examples.quickstart.main`` on the card at 60 slots:
+    exact matcher launches of its three runs, DS's unit cost below
+    CU_FULL's (the example's claim); its printed spec lines kept."""
+    import contextlib
+    import io
+    from repro_torch.examples import quickstart
+    env = os.environ.get("COCKTAIL_EXAMPLE_SLOTS")
+    os.environ["COCKTAIL_EXAMPLE_SLOTS"] = str(QUICKSTART_SLOTS)
+    printed = io.StringIO()
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            summaries = quickstart.main([])
+    finally:
+        if env is None:
+            os.environ.pop("COCKTAIL_EXAMPLE_SLOTS")
+        else:
+            os.environ["COCKTAIL_EXAMPLE_SLOTS"] = env
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = {k: QUICKSTART_SLOTS * sum(QUICKSTART_PER_SLOT[name][k] for name in summaries)
+            for k in DS_PER_SLOT}
+    launched = expect_counts(kernels, "the quickstart", want)
+    if sorted(summaries) != sorted(QUICKSTART_PER_SLOT) or any(
+            s["slots"] != QUICKSTART_SLOTS for s in summaries.values()):
+        fail(f"the quickstart ran {json.dumps({k: s['slots'] for k, s in summaries.items()})} "
+             f"slots, expected {QUICKSTART_SLOTS} of each of {sorted(QUICKSTART_PER_SLOT)}")
+    cost = {name: s["unit_cost"] for name, s in summaries.items()}
+    if not (math.isfinite(cost["ds"]) and cost["ds"] < cost["cufull"]):
+        fail(f"the quickstart on the card: DS's unit cost {cost['ds']} is not below "
+             f"CU_FULL's {cost['cufull']}")
+    lines = [ln for ln in printed.getvalue().splitlines() if "unit_cost=" in ln]
+    return {"slots": QUICKSTART_SLOTS, "seconds": seconds, "unit_cost": cost,
+            "skew_degree": {name: s["skew_degree"] for name, s in summaries.items()},
+            "reduction_pct": 100 * (cost["cufull"] - cost["ds"]) / cost["cufull"],
+            "launches": launched, "lines": lines}
+
+
+def phase_train_families(torch, models, configs, steps, kernels, device: str = "cuda") -> dict:
+    """Phase 18: ``train18_cell`` of every ``TRAIN18_CELLS`` arch, then
+    each one's reduced train step card against CPU (``train_card_vs_cpu``),
+    then the quickstart on the card."""
+    from repro_torch import optim
+    from repro_torch.launch import train
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {"card_memory_bytes": total, "memory_share_limit": TRAIN_MEMORY_SHARE,
+           "cells": {}, "card_vs_cpu": {}}
+    for arch, layers in TRAIN18_CELLS:
+        out["cells"][arch] = train18_cell(torch, train, configs, kernels, arch, layers, total)
+    t0 = time.perf_counter()
+    for arch, _ in TRAIN18_CELLS:
+        out["card_vs_cpu"][arch] = train_card_vs_cpu(torch, models, configs, steps, optim,
+                                                     kernels, arch, device)
+    out["card_vs_cpu_s"] = time.perf_counter() - t0
+    out["quickstart"] = quickstart_on_card(torch, kernels)
+    return out
+
+
 def report_families(fam: dict, smi: str, t0: float) -> None:
     for arch, r in fam.items():
         print(f"phase 12 {arch} ({r['n_layers']} layers, {r['weights_gb']:.2f} GB of bf16 "
@@ -3524,6 +3740,26 @@ def main(argv=None) -> int:
               f"fits 80 GB {r['analytic_memory']['fits_hbm']}, host {r['host_s']} s")
     print(f"phase 17 (b) joined {time.perf_counter() - t0:.1f} s after phase 17 (a)")
 
+    t0 = time.perf_counter()
+    trf = phase_train_families(torch, models, configs, steps, all_kernels)
+    for arch, r in trf["cells"].items():
+        print(f"phase 18 train {r['arch']} ({r['n_layers']} layers, B 16 x 128, DS every 2 "
+              f"steps) [{smi}]: {r['ms_per_step']:.2f} ms per step (median of steps 2-"
+              f"{TRAIN18_STEPS}), {r['tokens_per_s']:.1f} tokens/s, peak {r['peak_gib']:.2f} "
+              f"GiB ({100 * r['peak_share']:.1f} % of the card), run {r['run_s']:.1f} s, "
+              f"losses {json.dumps(r['losses'])}, step ms "
+              f"{json.dumps([round(x, 2) for x in r['step_ms']])}, attention launches per step "
+              f"{json.dumps(r['attention_per_step'])}, matcher launches per slot "
+              f"{json.dumps(r['matcher_launches_per_slot'])} ({r['slots']} slots)")
+    for arch, r in trf["card_vs_cpu"].items():
+        print(f"phase 18 reduced {arch} train step, card vs CPU: {json.dumps(r)}")
+    q = trf["quickstart"]
+    print(f"phase 18 quickstart on the card, {q['slots']} slots, {q['seconds']:.1f} s [{smi}]: "
+          f"DataSche {q['reduction_pct']:.1f} % below CU_FULL in unit cost, launches "
+          f"{json.dumps(q['launches'])}; " + " | ".join(" ".join(ln.split()) for ln in q["lines"]))
+    print(f"phase 18 took {time.perf_counter() - t0:.1f} s (card vs CPU "
+          f"{trf['card_vs_cpu_s']:.1f} s)")
+
     for mod in ("jax", "repro"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -3563,6 +3799,11 @@ def main(argv=None) -> int:
         return counts["flash_attention"] - counts["flash_attention_wgmma"] - \
             counts["flash_attention_decode"]
 
+    def train_launches(name):
+        """Phase 18's launches of one attention kernel a train step, by arch."""
+        return {r["arch"]: r["attention_per_step"].get(name, 0.0)
+                for r in trf["cells"].values()}
+
     def family_launches(count):
         """Phase 12's launches of one kernel per decode step, 16-token forward
         and prefill, per arch."""
@@ -3588,6 +3829,8 @@ def main(argv=None) -> int:
         "launches_tp_train_step": {
             style: {arch: simt_count(ranks[0]["bf16_launches"]) for arch, ranks in cells.items()}
             for style, cells in tp15["train"].items()},
+        "launches_train": {arch: n - train_launches("flash_attention_wgmma")[arch]
+                           for arch, n in train_launches("flash_attention").items()},
         "max_abs_err": fa_err["simt"],
         "ms": fwd["device_ms"], "device_ms": fwd["device_ms"], "event_ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -3620,6 +3863,7 @@ def main(argv=None) -> int:
         "launches_per_decode_step": mini["step_launches"]["flash_attention_decode"],
         "launches_tp15": {arch: r["launches"]["flash_attention_decode"]
                           for arch, r in tp15["cells"].items()},
+        "launches_train": train_launches("flash_attention_decode"),
         "max_abs_err": fa_err["decode"], "ms": dec["device_ms"], "event_ms": dec["ms"],
         "simt_ms": dec["simt_device_ms"], "simt_event_ms": dec["simt_ms"],
         "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
@@ -3642,6 +3886,7 @@ def main(argv=None) -> int:
         "launches": mini["prefill_launches"]["flash_attention_wgmma"],
         "launches_serve": mini["serve_launches"]["flash_attention_wgmma"],
         "launches_families": family_launches(lambda c: c["flash_attention_wgmma"]),
+        "launches_train": train_launches("flash_attention_wgmma"),
         "max_abs_err": fa_err["wgmma"], "ms": pre["ms"], "simt_ms": pre["simt_ms"],
         "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
         "library_ms": pre["library_ms"], "shape": pre["shape"],
@@ -3706,7 +3951,7 @@ def main(argv=None) -> int:
             "serve": serve_res, "lm_parity": lm_parity, "fleet": fleet, "train": trn,
             "families": fam, "distributed": dst, "decode_lse": lse_res,
             "tensor_parallel": tp, "tensor_parallel_15": tp15, "split_decode": split,
-            "dryrun": dry},
+            "dryrun": dry, "train_families": trf},
             indent=1))
     import torch.distributed as dist
     dist.destroy_process_group()

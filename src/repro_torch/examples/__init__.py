@@ -1,7 +1,8 @@
 """Runnable examples of the port, counterparts of the JAX package's
 ``examples/*.py``. Each runs on the CUDA card unless given ``--device cpu``;
-``COCKTAIL_EXAMPLE_SLOTS`` sets the number of slots of the fleet examples:
+``COCKTAIL_EXAMPLE_SLOTS`` sets the number of slots of the scheduler examples:
 
+    PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
     PYTHONPATH=src python -m repro_torch.examples.fleet_multi_slice [--device cpu]
     PYTHONPATH=src python -m repro_torch.examples.ragged_fleet [--device cpu]
     PYTHONPATH=src python -m repro_torch.examples.mixed_policy_fleet [--device cpu]
@@ -11,13 +12,14 @@ import argparse
 import os
 
 
-def example_args(doc: str) -> tuple[str | None, int]:
-    """(device, slots) of an example: ``--device`` (CUDA when not given)
-    and ``COCKTAIL_EXAMPLE_SLOTS`` (60 when unset)."""
+def example_args(doc: str, argv=None) -> tuple[str | None, int]:
+    """(device, slots) of an example: ``--device`` (CUDA when not given) of
+    ``argv`` (the command line when None) and ``COCKTAIL_EXAMPLE_SLOTS`` (60
+    when unset)."""
     parser = argparse.ArgumentParser(description=doc.splitlines()[0])
     parser.add_argument("--device", default=None,
                         help="torch device to run on (default: cuda)")
-    return parser.parse_args().device, int(os.environ.get("COCKTAIL_EXAMPLE_SLOTS", "60"))
+    return parser.parse_args(argv).device, int(os.environ.get("COCKTAIL_EXAMPLE_SLOTS", "60"))
 
 
 def print_slices(engine, jobs, state, with_spec: bool = False) -> None:
