@@ -31,7 +31,7 @@ Phases, each fatal on failure:
      check with ``cuobjdump -sass`` that the bf16 prefill attention kernel
      runs its products as HGMMA (wgmma) instructions, and print ptxas's
      registers and spills of the wgmma, decode attention, SIMT attention
-     and scan kernels;
+     and scan kernels (forward and backward);
   6. hold the LM kernels against their plain PyTorch versions on the
      card at the LM serving path's shapes (attention prefill B 4 x 2048,
      H 32 / Hkv 8, hd 128 on the wgmma kernel; decode on the decode kernel
@@ -42,7 +42,11 @@ Phases, each fatal on failure:
      version at B 128 over batch slices; the scan at B 4 x 2048 x 8192 x 16, also with
      a drawn per (channel, state) and b / c as strided bf16 slices of one
      x_proj-shaped tensor as the model passes them, at S = 1 with h0, over
-     8192 steps and at N = 32; windows, soft-cap, prefix, ragged lengths,
+     8192 steps and at N = 32; the scan's backward kernel, every gradient
+     against the plain backward, at falcon-mamba-7b's train shape B 16 x
+     128 and at B 4 x 2048 (bf16, strided b / c), and in float32 with h0
+     and the final state's gradient at B 2 x 2048, odd S and DI, N 32;
+     windows, soft-cap, prefix, ragged lengths,
      8,192 and 32,768 keys,
      hd 36 / 64 / 80 / 128 / 256, Hkv 1 / 2 / 8 / 32, rows that see no key,
      in bf16 and float32; minitron-4b's 16-token forward and the bf16
@@ -73,14 +77,14 @@ Phases, each fatal on failure:
      assignments first, equal on both sides;
  10. drive the fleet path (``FleetEngine.from_configs`` / ``from_jobs`` ->
      ``run``) at 1024 x 32 with per-slice rates, costs and budgets: DS and
-     L-DS fleets of K = 1 and K = 8 slices over 3 slots (ms per fleet slot
+     L-DS fleets of K = 1 and K = 4 slices over 2 slots (ms per fleet slot
      and per slice-slot, device busy and launches per fleet slot, peak
-     memory, matcher launches per run equal to 3 x one per policy group
-     at both K), each K = 8 slice against its own single-slice run (rtol
-     1e-6, first-slot decisions equal), one K = 8 L-DS slot on the card
+     memory, matcher launches per run equal to 2 x one per policy group
+     at both K), each K = 4 slice against its own single-slice run (rtol
+     1e-6, first-slot decisions equal), one K = 4 L-DS slot on the card
      against the CPU, a ragged fleet (1024 x 32, 768 x 24, 512 x 16,
      1024 x 16 padded to 1024 x 32) and a mixed-policy fleet (ds, l-ds,
-     no-sdc, no-slt, no-lsa, greedy, ecself, cufull under SWITCHED) over 4
+     no-sdc, no-slt, no-lsa, greedy, ecself, cufull under SWITCHED) over 2
      slots against their slices' own runs;
  11. train minitron-4b at its full width through ``repro_torch.launch.train``
      (B 16 x 128, DS every 4 steps, 8 steps, float32 master weights and
@@ -96,13 +100,16 @@ Phases, each fatal on failure:
      resumed against an uninterrupted 20-step run; the attention Function at
      the train shape (forward against the plain version, gradients bit-equal
      to autograd through it, times beside SDPA's forward and backward); and
-     the scan's CUDA route raising under autograd;
+     the scan's CUDA route under autograd (``ops.KernelScan``: the forward
+     kernel, then the backward kernel; gradients against autograd through
+     the plain scan);
  12. serve each other family at its published widths through
      ``repro_torch.launch.serve`` as phases 7-8 do (B 4, prompt 16, 32
-     generated; bf16 weights drawn on the card): qwen2.5-32b, gemma2-27b,
-     granite-20b, mixtral-8x7b (24 of 32 layers: all 32 do not fit),
-     zamba2-2.7b, whisper-base (frames encoded into its cross-attention
-     cache first) and paligemma-3b (256 patch embeddings ahead of its
+     generated; bf16 weights drawn on the card), cut in depth for the
+     script's time: qwen2.5-32b (16 of 64 layers), gemma2-27b (8 of 46),
+     granite-20b (16 of 52), mixtral-8x7b (8 of 32), zamba2-2.7b (12 of
+     54), whisper-base whole (frames encoded into its cross-attention
+     cache first) and paligemma-3b (6 of 18; 256 patch embeddings ahead of its
      forward and prefill); per arch the exact attention launches by kernel
      per decode step, 16-token forward and B 4 x 2048 prefill, the three
      decode checks of phase 7 (bf16 against forward at its own limit),
@@ -122,10 +129,10 @@ Phases, each fatal on failure:
      32 over 3 slots bit-equal to ``run()`` with the same matcher launches;
  14. tensor-parallel serving on the one card: two gloo ranks spawned on it
      (NCCL refuses two ranks on one device) serve through ``serve.main
-     --model-parallel 2`` minitron-4b at full size (kv heads on ``model``),
+     --model-parallel 2`` minitron-4b at 8 of 32 layers (kv heads on ``model``),
      granite-20b at 8 layers (one kv head: the cache split by slots, the
      decode kernel's log-sum-exp output and the merge), falcon-mamba-7b at
-     8 and mixtral-8x7b at 4 (B 4, prompt 16, 32 generated), with exact
+     8 and mixtral-8x7b at 4 (B 4, prompt 16, 16 generated), with exact
      launches and collectives a step; each held in float32 compute within
      1e-4 of scale of the unsharded run on the same card (greedy tokens
      equal) and in bf16 within 0.15 (argmax agreement reported); ms per
@@ -140,7 +147,7 @@ Phases, each fatal on failure:
      minitron-4b at 4 of 32 layers, zamba2-2.7b at 6 and whisper-base, B 4
      x 128: in float32 each rank holds its blocks against the unsharded
      step on the card (loss 1e-5 relative; grad norm, moments and updated
-     parameters 1e-4 of each leaf's scale), then 2 bf16 steps: ms a step,
+     parameters 1e-4 of each leaf's scale), then a bf16 step: its ms,
      collectives of the forward and of the rest by kind, exact attention
      launches a step (the wgmma kernel through ``ops.KernelAttention`` at
      minitron-4b's 16 / 4 local heads), peak memory a rank.
@@ -148,7 +155,7 @@ Phases, each fatal on failure:
      world: the train cells of 15 (b) under ``mesh_context(mesh, style)``
      (tp_sp: each rank's block of positions between layers; fsdp: each
      rank's half of the rows, every leaf gathered whole at its
-     use), held in float32 as 15 (b) holds them, then 2 bf16 steps each
+     use), held in float32 as 15 (b) holds them, then a bf16 step each
      with the same attention launches; minitron-4b's collectives of a step
      exactly ``tp_train_comm``'s in all three styles.
  17. (a) a batch below dp: phase 14's two gloo ranks as a (data 2, model 1)
@@ -171,13 +178,16 @@ Phases, each fatal on failure:
      DS slot every 2: gemma2-27b at 4 of 46 layers (two local, two global;
      soft-caps, a float32 stream), mixtral-8x7b at 2 of 32, zamba2-2.7b,
      whisper-base (1,500 frames a row) and paligemma-3b (256 patches a row)
-     whole; per arch 4 finite losses, the peak under 95 % of the card,
-     exact launches (each attention call on the kernel ``kernel.variant``
-     gives it, twice a step under remat, counted from the config; DS's
-     matchers once a slot; no scan), ms per step, tokens/s; each arch's
+     whole, falcon-mamba-7b at 32 of 64 layers (the scan's forward and
+     backward kernels); per arch 4 finite losses, the peak under 95 % of
+     the card, exact launches (each attention call on the kernel
+     ``kernel.variant`` gives it, twice a step under remat, counted from the
+     config; the scan's forward kernel twice a Mamba-1 layer a step and its
+     backward kernel once; DS's matchers once a slot), ms per step,
+     tokens/s; each arch's
      reduced float32 train step on the card against the CPU as phase 11
      holds minitron-4b's (an MoE's routing equal on both sides); and
-     ``repro_torch.examples.quickstart`` on the card at 60 slots (exact
+     ``repro_torch.examples.quickstart`` on the card at 30 slots (exact
      matcher launches, DS's unit cost below CU_FULL's).
 Phase 6 also holds the decode kernel's log-sum-exp output against its plain
 version (granite-20b's decode on one of phase 14's ranks, a row that sees
@@ -208,7 +218,9 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-T_SLOTS = 12
+# Slots of phase 3's main-path runs: 6 since phase 18 trained
+# falcon-mamba-7b (12 before), for the script's time.
+T_SLOTS = 6
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 H100_BF16_TC_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
@@ -584,33 +596,16 @@ def time_training(torch, core, ta, cfg, state, net):
 
 
 def phase_profile(torch, core, cfg, state, main_res):
-    """Device time of one slot of each spec under torch.profiler: kernel
-    time summed over CUDA events, the launch count, and the busy share of
-    the slot's unprofiled wall time from phase 3."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
+    """Device time of one slot of each spec under torch.profiler
+    (``profile_window``): kernel time, the launch count, and the busy share
+    of the slot's unprofiled wall time from phase 3."""
     out = {}
     for spec in (core.LDS, core.DS):
         core.step(cfg, spec, state)  # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            core.step(cfg, spec, state)
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-        if busy_ms <= 0.0:
-            fail(f"{spec.name}: the profiler saw no device time")
-        top = sorted(kernels, key=dev_us, reverse=True)[:8]
+        prof = profile_window(torch, lambda: core.step(cfg, spec, state), top=8)
         wall = main_res[spec.name]["ms_per_slot"]
-        out[spec.name] = {
-            "device_busy_ms": busy_ms, "device_launches": sum(e.count for e in kernels),
-            "slot_ms": wall, "busy_share": busy_ms / wall,
-            "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3, "count": e.count} for e in top],
-        }
+        out[spec.name] = {k: prof[k] for k in ("device_busy_ms", "device_launches", "top")}
+        out[spec.name].update(slot_ms=wall, busy_share=prof["device_busy_ms"] / wall)
     return out
 
 
@@ -697,6 +692,19 @@ def scan_ptxas(skernel) -> dict:
     out = ptxas_report(skernel.library_path(), short)
     if not out:
         fail("the scan library's build log names no mamba1_scan_kernel instance")
+    return out
+
+
+def scan_bwd_ptxas(skernel) -> dict:
+    """Registers and spills of each instance of the scan's backward kernel
+    (x's type, lanes per channel pair G)."""
+    def short(mangled):  # mamba1_scan_bwd_kernel<T, G>
+        m = re.search(r"mamba1_scan_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)EE", mangled)
+        return f"{'f32' if m.group(1) == 'f' else 'bf16'}_g{m.group(2)}" if m else None
+
+    out = ptxas_report(skernel.library_path(), short)
+    if not out:
+        fail("the scan library's build log names no mamba1_scan_bwd_kernel instance")
     return out
 
 
@@ -889,6 +897,103 @@ def scan_bound(x, b, c, h0):
                                1.0 * bsz * s * di * n / H100_SFU_PER_S) * 1e3}
     by = max(terms, key=terms.get)
     return terms[by], by
+
+
+def scan_bwd_bound(x, b, h0, gh):
+    """Least time for one backward call: x, dt, gy, a, b, c, h0 and gh read
+    once, gx, gdt, ga, gb, gc and gh0 written once; 18 float32 operations per
+    (token, channel, state) (the state's recurrence 3, the adjoint 2, the
+    sums into gC, gB, gx, gdt and ga 2 each, the product lam alpha h 2, the
+    carry 1) at the float32 rate; or one exponential per (token, channel,
+    state) at the SFU rate."""
+    bsz, s, di = x.shape
+    n = b.shape[-1]
+    state = 4 * bsz * di * n
+    nbytes = 5 * x.numel() * x.element_size() + 2 * 4 * di * n + \
+        4 * b.numel() * b.element_size() + state * (1 + (h0 is not None) + (gh is not None))
+    terms = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
+             "operations": max(18.0 * bsz * s * di * n / H100_FP32_OPS_PER_S,
+                               1.0 * bsz * s * di * n / H100_SFU_PER_S) * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], by
+
+
+# The scan's backward kernel against the plain backward, of each gradient's
+# scale: float32 sums in other orders (and ex2.approx for exp); a bf16
+# gradient is one rounding of the float32 sums.
+SCAN_BWD_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
+# name, (B, S, DI, N), dtype, with h0 and the final state's gradient, b / c
+# as strided slices of one (B, S, 256 + 2N) product as models/ssm.py passes
+# them, timed: falcon-mamba-7b's train shape first (the kernels line's).
+SCAN_BWD_CASES = (("train_bf16", (16, 128, 8192, 16), "bfloat16", False, True, True),
+                  ("prefill_bf16", (4, 2048, 8192, 16), "bfloat16", False, True, True),
+                  ("h0_f32", (2, 2048, 1024, 16), "float32", True, False, False),
+                  ("odd_f32", (3, 77, 1000, 8), "float32", True, False, False),
+                  ("n32_f32", (2, 300, 512, 32), "float32", True, False, False))
+
+
+def cuda_draw(torch, rng, size, lo=None, hi=None):
+    """A float32 tensor on the card: standard normal, or uniform in
+    [lo, hi), drawn by ``rng``."""
+    v = rng.normal(size=size) if lo is None else rng.uniform(lo, hi, size)
+    return torch.as_tensor(v.astype(np.float32), device="cuda")
+
+
+def phase_scan_bwd(torch, skernel, sref) -> dict:
+    """Phase 6's backward cases: every gradient of ``mamba1_scan_bwd_cuda``
+    against ``ref.mamba1_scan_bwd_ref`` on the same inputs (dt drawn as the
+    forward cases draw it, a per (channel, state) over 1..16), one launch a
+    call; kernel, plain and bound ms at the timed shapes."""
+    out = {}
+    for idx, (name, (b, s, di, n), dname, with_h0, strided, timed) in enumerate(SCAN_BWD_CASES):
+        rng = np.random.default_rng(300 + idx)
+        dtype = getattr(torch, dname)
+
+        def draw(size, lo=None, hi=None):
+            return cuda_draw(torch, rng, size, lo, hi)
+
+        x, dt = draw((b, s, di)).to(dtype), draw((b, s, di), 0.001, 0.1).to(dtype)
+        a = -torch.exp(draw((di, n), 0.0, float(np.log(16.0))))
+        if strided:
+            _, bm, cm = draw((b, s, 256 + 2 * n)).to(dtype).split([256, n, n], dim=-1)
+        else:
+            bm, cm = draw((b, s, n)).to(dtype), draw((b, s, n)).to(dtype)
+        h0, gh = (draw((b, di, n)), draw((b, di, n))) if with_h0 else (None, None)
+        gy = draw((b, s, di)).to(dtype)
+        args = (x, dt, a, bm, cm, h0, gy, gh)
+        before = skernel.launches["mamba1_scan_bwd"]
+        got = skernel.mamba1_scan_bwd_cuda(*args)
+        if skernel.launches["mamba1_scan_bwd"] != before + 1:
+            fail(f"mamba1_scan_bwd {name}: the wrapper did not count one launch")
+        want = sref.mamba1_scan_bwd_ref(*args)
+        torch.cuda.synchronize()
+        tol = SCAN_BWD_TOL[dname]
+        errs, abs_errs = {}, {}
+        for gname, g, w in zip(("x", "dt", "a", "b", "c", "h0"), got, want):
+            if g.dtype != w.dtype or g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                fail(f"mamba1_scan_bwd {name}: gradient of {gname} is {g.dtype} "
+                     f"{tuple(g.shape)} (want {w.dtype} {tuple(w.shape)}) or not finite")
+            abs_errs[gname], errs[gname] = rel_err(g, w)
+        if max(errs.values()) > tol:
+            fail(f"mamba1_scan_bwd {name}: gradients {json.dumps(errs)} of scale from the "
+                 f"plain backward (limit {tol:.0e})")
+        bound, bound_by = scan_bwd_bound(x, bm, h0, gh)
+        res = {"shape": [b, s, di, n], "dtype": dname, "h0": with_h0, "strided_bc": strided,
+               "err_of_scale": max(errs.values()), "grad_err_of_scale": errs,
+               "max_abs_err": max(abs_errs.values()), "tol_of_scale": tol,
+               "bound_ms": bound, "bound_by": bound_by}
+        if timed:
+            res["ms"] = cuda_ms(torch, lambda: skernel.mamba1_scan_bwd_cuda(*args), reps=20,
+                                warmup=2)
+            res["forward_ms"] = cuda_ms(torch, lambda: skernel.mamba1_scan_cuda(*args[:6]),
+                                        reps=20, warmup=2)
+            # warm: the plain backward ran on these inputs for the check above
+            res["plain_ms"] = cuda_ms(torch, lambda: sref.mamba1_scan_bwd_ref(*args), reps=1,
+                                      warmup=0)
+        out[name] = res
+        del x, dt, gy, got, want, args
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel):
@@ -1186,35 +1291,41 @@ def expect_counts(kernels, what: str, want: dict) -> dict:
     return counts
 
 
-def profile_window(torch, fn, match: str = "") -> dict:
+def profile_window(torch, fn, match: str = "", top: int = 6) -> dict:
     """Device time of ``fn`` under torch.profiler: kernel time summed over
     CUDA events, the launch count, the host-clock wall time of the same
-    window and the busy share, plus the largest kernels; with ``match``,
-    also the time and launches of the kernels whose name holds it."""
+    window and the busy share, plus the ``top`` largest kernels; with
+    ``match``, also the time and launches of the kernels whose name holds
+    it. The profiler records the card's events alone and they are summed
+    from its raw records: host operators and ``key_averages()`` cost 46.0 s
+    at an L-DS slot's 92,458 launches on an H100's host, the card's events
+    through ``key_averages()`` 19.1 s (the same busy time and launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    kernels = {}  # name -> [device us, launches]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            rec = kernels.setdefault(e.name(), [0.0, 0])
+            rec[0] += e.duration_ns() / 1e3
+            rec[1] += 1
+    busy_ms = sum(us for us, _ in kernels.values()) / 1e3
     if busy_ms <= 0.0:
         fail("the profiler saw no device time")
-    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    largest = sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)[:top]
     out = {"device_busy_ms": busy_ms, "wall_ms": wall_ms, "busy_share": busy_ms / wall_ms,
-           "device_launches": sum(e.count for e in kernels),
-           "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3, "count": e.count} for e in top]}
+           "device_launches": sum(n for _, n in kernels.values()),
+           "top": [{"name": name[:80], "ms": us / 1e3, "count": n}
+                   for name, (us, n) in largest]}
     if match:
-        hit = [e for e in kernels if match in e.key]
-        out.update(match_ms=sum(dev_us(e) for e in hit) / 1e3,
-                   match_count=sum(e.count for e in hit))
+        hit = [rec for name, rec in kernels.items() if match in name]
+        out.update(match_ms=sum(us for us, _ in hit) / 1e3, match_count=sum(n for _, n in hit))
     return out
 
 
@@ -1612,22 +1723,27 @@ def attn_counts(simt: int = 0, wgmma: int = 0, decode: int = 0) -> dict:
 # at hd 80 / 256; gemma2-27b's and paligemma-3b's streams are float32 (the
 # embedding scale promotes), so their prefill and forward run the SIMT
 # kernel in float32 and their decode the decode kernel's float32 instances.
-# zamba2-2.7b attends once per group of 6 Mamba-2 layers (9 a call);
-# whisper-base in its 6 encoder layers (float32), 6 causal self-attentions
-# and 6 cross-attentions over 1,500 frames (float32 keys against the bf16
-# query in a forward, so the SIMT kernel in float32; the bf16 cache in
-# decode), and ``prefill_cross`` encodes once (6). mixtral-8x7b keeps 24 of
-# its 32 layers: all 32 are 93 GB of bf16 weights, the card holds 85.
+# zamba2-2.7b attends once per group of 6 Mamba-2 layers (2 a call at 12
+# layers); whisper-base in its 6 encoder layers (float32), 6 causal
+# self-attentions and 6 cross-attentions over 1,500 frames (float32 keys
+# against the bf16 query in a forward, so the SIMT kernel in float32; the
+# bf16 cache in decode), and ``prefill_cross`` encodes once (6). Six models
+# are cut in depth to keep the script in half its time limit (whole, this
+# phase took 169 s on the card; each arch's time goes with its layers):
+# qwen2.5-32b 16 of 64, gemma2-27b 8 of 46 (four local, four global),
+# granite-20b 16 of 52, mixtral-8x7b 8 of 32, zamba2-2.7b 12 of 54 (two
+# groups), paligemma-3b 6 of 18; whisper-base serves whole.
 FAMILY_CELLS = {
-    "qwen2.5-32b": (0, attn_counts(decode=64), attn_counts(simt=64), attn_counts(wgmma=64), {}),
-    "gemma2-27b": (0, attn_counts(decode=46), attn_counts(simt=46), attn_counts(simt=46), {}),
-    "granite-20b": (0, attn_counts(decode=52), attn_counts(simt=52), attn_counts(wgmma=52), {}),
-    "mixtral-8x7b": (24, attn_counts(decode=24), attn_counts(simt=24), attn_counts(wgmma=24),
-                     {}),
-    "zamba2-2.7b": (0, attn_counts(decode=9), attn_counts(simt=9), attn_counts(simt=9), {}),
+    "qwen2.5-32b": (16, attn_counts(decode=16), attn_counts(simt=16), attn_counts(wgmma=16),
+                    {}),
+    "gemma2-27b": (8, attn_counts(decode=8), attn_counts(simt=8), attn_counts(simt=8), {}),
+    "granite-20b": (16, attn_counts(decode=16), attn_counts(simt=16), attn_counts(wgmma=16),
+                    {}),
+    "mixtral-8x7b": (8, attn_counts(decode=8), attn_counts(simt=8), attn_counts(wgmma=8), {}),
+    "zamba2-2.7b": (12, attn_counts(decode=2), attn_counts(simt=2), attn_counts(simt=2), {}),
     "whisper-base": (0, attn_counts(decode=12), attn_counts(simt=18),
                      attn_counts(simt=12, wgmma=6), attn_counts(simt=6)),
-    "paligemma-3b": (0, attn_counts(decode=18), attn_counts(simt=18), attn_counts(simt=18), {}),
+    "paligemma-3b": (6, attn_counts(decode=6), attn_counts(simt=6), attn_counts(simt=6), {}),
 }
 
 
@@ -1651,11 +1767,14 @@ def phase_families(torch, serve, steps, models, configs, kernels) -> dict:
 # Phase 10: fleets
 # --------------------------------------------------------------------------
 
-FLEET_K = 8
-# Slots of the homogeneous fleets, few enough to keep the whole script well
-# inside its time limit (3 since phase 15 joined it; 4 before); the ragged
-# and mixed-policy ones run 4.
-FLEET_SLOTS = 3
+# Slices of the homogeneous fleets: 4 since phase 18 trained falcon-mamba-7b
+# (8 before), for the script's time; phase 13 (c) still runs K = 8 fleets.
+FLEET_K = 4
+# Slots of every fleet of this phase, few enough to keep the whole script in
+# half its time limit (2 since phase 18 trained falcon-mamba-7b; 3 and 4
+# before): the second slot still starts from the first one's queues,
+# multipliers and virtual queues.
+FLEET_SLOTS = 2
 # Matcher launches per fleet slot: one per policy group, whatever K is.
 FLEET_LAUNCHES = {"ds": {"greedy_collection": 1, "greedy_assignment": 0, "greedy_pairing": 1},
                   "l-ds": {"greedy_collection": 1, "greedy_assignment": 1, "greedy_pairing": 2}}
@@ -1699,12 +1818,12 @@ def same_run(torch, what: str, recs, ref_recs, state, ref_state) -> float:
 
 def phase_fleet(torch, core, kernel, bridge, metrics):
     """The fleet path at the Sec. IV-C setup (1024 x 32, pair_iters 120):
-    homogeneous DS and L-DS fleets at K = 1 and K = 8 (host ms per fleet
-    slot and per slice-slot, profiled device busy and launches per fleet
-    slot, peak memory, matcher launches per run: T x the per-slot count at
-    both K); each slice of the K = 8 fleets against its own single-slice
-    card run, one K = 8 L-DS slot against the CPU; a ragged fleet and a
-    mixed-policy fleet against their slices' own runs."""
+    homogeneous DS and L-DS fleets at K = 1 and K = FLEET_K (host ms per
+    fleet slot and per slice-slot, profiled device busy and launches per
+    fleet slot, peak memory, matcher launches per run: T x the per-slot
+    count at both K); each slice of the K = FLEET_K fleets against its own
+    single-slice card run, one such L-DS slot against the CPU; a ragged
+    fleet and a mixed-policy fleet against their slices' own runs."""
     from repro_torch.core.fleet import slice_records
     out = {"homogeneous": {}}
     cfgs = [fleet_config(core, s, *MAIN_SHAPE) for s in range(FLEET_K)]
@@ -1742,7 +1861,7 @@ def phase_fleet(torch, core, kernel, bridge, metrics):
             }
             fleets[(spec.name, k)] = (eng, state0, state, recs)
 
-    # Slice k of each K = 8 fleet against the single-slice run of slice k.
+    # Slice k of each K = FLEET_K fleet against the single-slice run of slice k.
     out["parity"] = {}
     t0 = time.perf_counter()
     for spec in (core.DS, core.LDS):
@@ -1764,7 +1883,7 @@ def phase_fleet(torch, core, kernel, bridge, metrics):
                                     "max_rel_err": worst, "seconds": time.perf_counter() - t0}
         t0 = time.perf_counter()
 
-    # One teacher-forced K = 8 L-DS slot: the card (kernels) against the CPU.
+    # One teacher-forced K = FLEET_K L-DS slot: the card (kernels) against the CPU.
     eng, _, state, _ = fleets[("l-ds", FLEET_K)]
     net = core.slot_network(eng.shape, state, eng.params)
     new_c, rec_c, dec_c = eng.step(state, net)
@@ -1795,17 +1914,17 @@ def phase_fleet(torch, core, kernel, bridge, metrics):
             for s, (n, m) in enumerate(RAGGED_SHAPES)]
     eng = core.FleetEngine.from_jobs(jobs)
     reset_counts(kernel)
-    state, recs = eng.run(4)
+    state, recs = eng.run(FLEET_SLOTS)
     launches = expect_counts((kernel,), "ragged fleet",
-                             {op: 4 * c for op, c in FLEET_LAUNCHES["ds"].items()})
+                             {op: FLEET_SLOTS * c for op, c in FLEET_LAUNCHES["ds"].items()})
     worst = 0.0
     for k, job in enumerate(jobs):
-        ref_state, ref_recs = core.run(job.config, job.spec, 4)
+        ref_state, ref_recs = core.run(job.config, job.spec, FLEET_SLOTS)
         worst = max(worst, same_run(torch, f"ragged slice {job.config.n_cu}x{job.config.n_ec}",
                                     slice_records(recs, k), ref_recs,
                                     eng.slice_state(state, k), ref_state))
     out["ragged"] = {"shapes": [list(sh) for sh in RAGGED_SHAPES], "padded_to": list(MAIN_SHAPE),
-                     "slots": 4, "launches": launches, "max_rel_err": worst,
+                     "slots": FLEET_SLOTS, "launches": launches, "max_rel_err": worst,
                      "seconds": time.perf_counter() - t0}
 
     # A mixed-policy fleet: one slice of each spec but ecfull, SWITCHED.
@@ -1829,18 +1948,19 @@ def phase_fleet(torch, core, kernel, bridge, metrics):
             per_slot[op] = per_slot.get(op, 0) + c
     reset_counts(kernel)
     t1 = time.perf_counter()
-    state, recs = eng.run(4)
+    state, recs = eng.run(FLEET_SLOTS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    launches = expect_counts((kernel,), "mixed fleet", {op: 4 * c for op, c in per_slot.items()})
+    launches = expect_counts((kernel,), "mixed fleet",
+                             {op: FLEET_SLOTS * c for op, c in per_slot.items()})
     worst = 0.0
     for k, job in enumerate(jobs):
-        ref_state, ref_recs = core.run(job.config, job.spec, 4)
+        ref_state, ref_recs = core.run(job.config, job.spec, FLEET_SLOTS)
         worst = max(worst, same_run(torch, f"mixed slice {job.spec.name}",
                                     slice_records(recs, k), ref_recs,
                                     eng.slice_state(state, k), ref_state))
-    out["mixed_policy"] = {"specs": list(MIXED_SPECS), "slots": 4,
-                           "ms_per_fleet_slot": wall / 4 * 1e3,
+    out["mixed_policy"] = {"specs": list(MIXED_SPECS), "slots": FLEET_SLOTS,
+                           "ms_per_fleet_slot": wall / FLEET_SLOTS * 1e3,
                            "launches_per_slot_by_group": groups, "launches": launches,
                            "max_rel_err": worst, "seconds": time.perf_counter() - t1}
     return out
@@ -1916,7 +2036,7 @@ def train_full_width(torch, train, configs, kernels, n_layers: int) -> dict:
     layers, steps = summary["n_layers"], len(summary["losses"])
     slots = summary["sched_slots"]
     cfg = dataclasses.replace(configs.get_config("minitron-4b"), n_layers=layers)
-    want = {**train_attention_launches(cfg, 128, steps),
+    want = {**train_launches(cfg, 128, steps),
             **{k: n * slots for k, n in DS_PER_SLOT.items()}}
     launched = expect_counts(kernels, f"minitron-4b training, {layers} layers", want)
     if steps != 8 or not all(math.isfinite(x) for x in summary["losses"]):
@@ -1938,8 +2058,8 @@ def profile_train_step(torch, api, train, steps, optim, kernels, mesh=None,
     draws them): the host-clock time of three steps after a warm one (their
     median is ``unprofiled_step_ms``), then one profiled step: device busy
     time, launches, busy share, the time and launches of the kernels whose
-    name holds ``match``; the attention launches of one step counted
-    exactly (``train_attention_launches``). With
+    name holds ``match``; the attention and scan launches of one step
+    counted exactly (``train_launches``). With
     ``mesh``, the model's blocks are sharded and the steps run under it
     (the profile then matches the NCCL kernels); without, the step's
     forward, backward and AdamW spans follow."""
@@ -1972,7 +2092,7 @@ def profile_train_step(torch, api, train, steps, optim, kernels, mesh=None,
     state, opt, met = step(state, opt, batch)
     torch.cuda.synchronize()
     per_step = expect_counts(kernels, f"one {cfg.name} train step",
-                             train_attention_launches(cfg, 128, 1))
+                             train_launches(cfg, 128, 1))
 
     def one():
         nonlocal state, opt, met
@@ -2032,10 +2152,12 @@ def attention_calls(cfg, seq: int) -> list:
     hybrid's shared block once a group; the encoder-decoder's encoder over
     its frames in float32 (its position table promotes), then per decoder
     layer a causal self-attention in the compute type and a cross-attention
-    in float32 (the float32 keys promote the query)."""
+    in float32 (the float32 keys promote the query); none in a pure SSM."""
     import torch
     from repro_torch.models import hybrid
     cdt, hd = getattr(torch, cfg.compute_dtype), cfg.head_dim
+    if cfg.family == "ssm":
+        return []
     if cfg.family == "hybrid":
         return [(cdt, hd, seq)] * hybrid.n_groups(cfg)
     if cfg.family == "encdec":
@@ -2055,6 +2177,24 @@ def train_attention_launches(cfg, seq: int, forwards: int) -> dict:
     routes = [variant(*call) for call in attention_calls(cfg, seq)]
     n = forwards * (2 if cfg.remat else 1)
     return attn_counts(simt=n * routes.count("simt"), wgmma=n * routes.count("wgmma"))
+
+
+def train_scan_launches(cfg, forwards: int) -> dict:
+    """Exact scan launches of ``forwards`` differentiated forwards of a
+    Mamba-1 model (none for other families): the forward kernel once a layer
+    (through ``ops.KernelScan``), twice under remat (the backward's
+    recompute), and the backward kernel once a layer."""
+    if cfg.family != "ssm":
+        return {}
+    n = forwards * cfg.n_layers
+    return {"mamba1_scan": n * (2 if cfg.remat else 1), "mamba1_scan_bwd": n}
+
+
+def train_launches(cfg, seq: int, forwards: int) -> dict:
+    """Exact attention and scan launches of ``forwards`` differentiated
+    forwards of ``cfg`` over ``seq`` tokens."""
+    return {**train_attention_launches(cfg, seq, forwards),
+            **train_scan_launches(cfg, forwards)}
 
 
 def train_card_vs_cpu(torch, models, configs, steps, optim, kernels,
@@ -2106,7 +2246,7 @@ def train_card_vs_cpu(torch, models, configs, steps, optim, kernels,
                      "routing": [(i.cpu(), kept.cpu()) for i, kept in routing]}
         if side == "card":  # float32: the SIMT kernel, the loss's forward and the step's
             launched = expect_counts(kernels, f"reduced {arch} train step",
-                                     train_attention_launches(cfg, tokens.shape[1], 2))
+                                     train_launches(cfg, tokens.shape[1], 2))
     card, cpu = res["card"], res["cpu"]
     routing = None
     if cfg.family == "moe":
@@ -2263,23 +2403,56 @@ def attention_train_shape(torch, fops, fref, fkernel) -> dict:
             "library_ms": sdpa_ms, "library_forward_backward_ms": sdpa_fwd_bwd_ms}
 
 
-def scan_refuses_autograd(torch, sops) -> dict:
-    """The scan's CUDA route raises under autograd (no backward kernel)."""
-    x = torch.zeros((1, 8, 16), device="cuda", requires_grad=True)
-    dt, b, c = (torch.zeros(s, device="cuda") for s in ((1, 8, 16), (1, 8, 4), (1, 8, 4)))
-    try:
-        sops.mamba1_scan(x, dt, -torch.ones((16, 4), device="cuda"), b, c)
-    except NotImplementedError as exc:
-        return {"raises": True, "message": str(exc)}
-    fail("the scan's CUDA route ran under autograd instead of raising")
+def scan_function(torch, sops, skernel) -> dict:
+    """The scan's CUDA route under autograd: the call is recorded as
+    ``ops.KernelScan``, launches the forward kernel once (outputs bit-equal
+    to the kernel called directly) and the backward kernel once in the
+    backward; every gradient (with h0 and the final state's gradient) within
+    SCAN_BWD_TOL of scale of autograd through ``mamba1_scan_chunked``."""
+    rng = np.random.default_rng(41)
+    b, s, di, n = 2, 64, 256, 16
+
+    def draw(size, lo=None, hi=None):
+        return cuda_draw(torch, rng, size, lo, hi)
+
+    inputs = (draw((b, s, di)), draw((b, s, di), 0.001, 0.1),
+              -torch.exp(draw((di, n), 0.0, float(np.log(16.0)))), draw((b, s, n)),
+              draw((b, s, n)), draw((b, di, n)))
+    gy, gh = draw((b, s, di)), draw((b, di, n))
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    before = dict(skernel.launches)
+    y, h = sops.mamba1_scan(*leaves[:5], h0=leaves[5])
+    if type(y.grad_fn).__name__ != "KernelScanBackward":
+        fail(f"the scan's CUDA route under autograd recorded {type(y.grad_fn).__name__}, not "
+             f"KernelScan")
+    grads = torch.autograd.grad((y, h), leaves, (gy, gh))
+    launched = {k: skernel.launches[k] - before[k] for k in before}
+    if launched != {"mamba1_scan": 1, "mamba1_scan_bwd": 1}:
+        fail(f"the scan's CUDA route under autograd launched {launched}, expected one forward "
+             f"and one backward kernel")
+    direct = skernel.mamba1_scan_cuda(*inputs)
+    if not (torch.equal(y.detach(), direct[0]) and torch.equal(h.detach(), direct[1])):
+        fail("the scan's Function forward is not bit-equal to the kernel called directly")
+    plain = [t.clone().requires_grad_() for t in inputs]
+    yp, hp = sops.mamba1_scan(*plain[:5], h0=plain[5], impl="chunked")
+    want = torch.autograd.grad((yp, hp), plain, (gy, gh))
+    errs = {name: rel_err(g, w)[1] for name, g, w in zip(("x", "dt", "a", "b", "c", "h0"),
+                                                           grads, want)}
+    if max(errs.values()) > SCAN_BWD_TOL["float32"]:
+        fail(f"the scan's Function gradients are {json.dumps(errs)} of scale from autograd "
+             f"through the chunked scan (limit {SCAN_BWD_TOL['float32']:.0e})")
+    return {"function": "KernelScan", "shape": [b, s, di, n], "launches": launched,
+            "forward_bit_equal": True, "grad_err_of_scale": errs,
+            "tol_of_scale": SCAN_BWD_TOL["float32"]}
 
 
-def phase_train(torch, models, configs, steps, kernels, fkernel, fops, fref, sops) -> dict:
+def phase_train(torch, models, configs, steps, kernels, fkernel, fops, fref, sops,
+                skernel) -> dict:
     """Phase 11: the training path (``repro_torch.launch.train.main``) at
     minitron-4b's full width, 32 layers unless the peak memory passes
     TRAIN_MEMORY_SHARE of the card (then TRAIN_CUT_LAYERS); one profiled
     step; the reduced step card vs CPU; resume; the attention Function at
-    the train shape; the scan's refusal under autograd."""
+    the train shape; the scan's Function under autograd."""
     import gc
     from repro_torch import optim
     from repro_torch.launch import train
@@ -2315,7 +2488,7 @@ def phase_train(torch, models, configs, steps, kernels, fkernel, fops, fref, sop
     out["card_vs_cpu"] = train_card_vs_cpu(torch, models, configs, steps, optim, kernels)
     out["resume"] = train_resume(torch, train, kernels, ROOT / "build" / "chip_smoke_resume")
     out["attention"] = attention_train_shape(torch, fops, fref, fkernel)
-    out["scan"] = scan_refuses_autograd(torch, sops)
+    out["scan"] = scan_function(torch, sops, skernel)
     return out
 
 
@@ -2639,16 +2812,19 @@ def phase_lse(torch, fops, fref, fkernel) -> dict:
 # Phase 14: tensor-parallel serving, two ranks on the one card
 # --------------------------------------------------------------------------
 
-# arch -> layers kept (0: all). minitron-4b serves at its full depth with its
-# 8 kv heads on model (the "heads" cache layout); granite-20b's one kv head
-# leaves the cache split by slots ("seq": q gathered, the decode kernel's
-# lse output, the log-sum-exp merge); falcon-mamba-7b splits its Mamba-1
-# channels, mixtral-8x7b its experts' ffn; the three are cut in depth for
-# the phase's time.
-TP_CELLS = (("minitron-4b", 0), ("granite-20b", 8), ("falcon-mamba-7b", 8),
+# arch -> layers kept (0: all). minitron-4b serves with its 8 kv heads on
+# model (the "heads" cache layout); granite-20b's one kv head leaves the
+# cache split by slots ("seq": q gathered, the decode kernel's lse output,
+# the log-sum-exp merge); falcon-mamba-7b splits its Mamba-1 channels,
+# mixtral-8x7b its experts' ffn; all four are cut in depth for the phase's
+# time (minitron-4b to 8 of 32 layers since phase 18 trained
+# falcon-mamba-7b).
+TP_CELLS = (("minitron-4b", 8), ("granite-20b", 8), ("falcon-mamba-7b", 8),
             ("mixtral-8x7b", 4))
 TP_WORLD = 2
-TP_BATCH, TP_PROMPT, TP_GEN = 4, 16, 32
+# Generated tokens of a two-rank serve run: 16 since phase 18 trained
+# falcon-mamba-7b (32 before), for the script's time.
+TP_BATCH, TP_PROMPT, TP_GEN = 4, 16, 16
 TP_STEPS = 6  # teacher-forced decode steps held against the unsharded run
 # Of scale: the two ranks' float32 partial sums meet in one more addition
 # than the unsharded products (measured on an H100: 1.2e-6 to 2.6e-6).
@@ -2871,8 +3047,10 @@ TP15_CELLS = (("zamba2-2.7b", 12), ("whisper-base", 0))
 # / kv heads: the wgmma kernel in bf16), zamba2-2.7b at 6 (one group: the
 # SIMT kernel at hd 80) and whisper-base whole; B 4 x 128 each.
 TP15_TRAIN_CELLS = (("minitron-4b", 4), ("zamba2-2.7b", 6), ("whisper-base", 0))
-# Two bf16 steps a cell and style (the first one warms up).
-TP15_BATCH, TP15_SEQ, TP15_BF16_STEPS = 4, 128, 2
+# One bf16 step a cell and style after the float32 one (two, the first a
+# warm-up, until phase 18 trained falcon-mamba-7b: cut for the script's
+# time), so its ms include the bf16 path's first call.
+TP15_BATCH, TP15_SEQ, TP15_BF16_STEPS = 4, 128, 1
 # 1e3 x AdamW's eps: a gradient below it sets a first update lr g / (|g| +
 # eps) that moves by 1e-3 of its ulps' error and more (``hold_train_blocks``).
 TP15_GRAD_FLOOR = 1e-5
@@ -3279,13 +3457,15 @@ TRAIN18_ARGV[TRAIN18_ARGV.index("--slot-every") + 1] = "2"
 # mixtral-8x7b (32 layers, 47 B) cannot train on one card at about 16 bytes a
 # parameter (float32 weights, AdamW's m and v, the gradient): 4 layers of
 # gemma2-27b (two local, two global) are 3.4 B parameters, 2 of
-# mixtral-8x7b 3.2 B. The other three train whole.
+# mixtral-8x7b 3.2 B. falcon-mamba-7b whole is 7.0 B (104 GiB at 16 bytes a
+# parameter); 32 of its 64 layers are 3.6 B (54 GiB). The other three train
+# whole.
 TRAIN18_CELLS = (("gemma2-27b", 4), ("mixtral-8x7b", 2), ("zamba2-2.7b", 0),
-                 ("whisper-base", 0), ("paligemma-3b", 0))
+                 ("whisper-base", 0), ("paligemma-3b", 0), ("falcon-mamba-7b", 32))
 # The quickstart's slots and its specs' matcher launches a slot: L-DS adds
 # its virtual plain-P1 assignment and a second pairing; CU_FULL collects
 # without a matcher.
-QUICKSTART_SLOTS = 60
+QUICKSTART_SLOTS = 30  # the example's 60, halved for the script's time
 QUICKSTART_PER_SLOT = {
     "ds": DS_PER_SLOT,
     "l-ds": {"greedy_collection": 1, "greedy_assignment": 1, "greedy_pairing": 2},
@@ -3296,8 +3476,8 @@ def train18_cell(torch, train, configs, kernels, arch: str, layers: int, total: 
     """``train.main`` on ``arch`` at its published widths (its first
     ``layers`` layers, registered as ``<arch>-<layers>l``, when not 0),
     B 16 x 128, 4 steps, DS every 2: the losses finite, the peak under
-    TRAIN_MEMORY_SHARE of the card, exact launches (``train_attention_launches``
-    of 4 steps, DS's matchers per slot, no scan)."""
+    TRAIN_MEMORY_SHARE of the card, exact launches (``train_launches`` of 4
+    steps: attention and the scan's two kernels; DS's matchers per slot)."""
     import gc
     cfg = configs.get_config(arch)
     if layers:
@@ -3317,7 +3497,7 @@ def train18_cell(torch, train, configs, kernels, arch: str, layers: int, total: 
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     steps, slots = len(summary["losses"]), summary["sched_slots"]
-    want = {**train_attention_launches(cfg, seq, steps),
+    want = {**train_launches(cfg, seq, steps),
             **{k: n * slots for k, n in DS_PER_SLOT.items()}}
     launched = expect_counts(kernels, f"{cfg.name} training", want)
     if steps != TRAIN18_STEPS or not all(math.isfinite(x) for x in summary["losses"]):
@@ -3336,13 +3516,15 @@ def train18_cell(torch, train, configs, kernels, arch: str, layers: int, total: 
             "peak_gib": peak / 2 ** 30, "peak_share": peak / total, "launches": launched,
             "attention_per_step": {k: v / steps for k, v in launched.items()
                                    if k.startswith("flash_")},
+            "scan_per_step": {k: v / steps for k, v in launched.items()
+                              if k.startswith("mamba1_scan")},
             "matcher_launches_per_slot": {k: launched[k] / slots for k in DS_PER_SLOT},
             "slots": slots, "sched_cost": summary["sched_cost"],
             "sched_trained": summary["sched_trained"]}
 
 
 def quickstart_on_card(torch, kernels) -> dict:
-    """``repro_torch.examples.quickstart.main`` on the card at 60 slots:
+    """``repro_torch.examples.quickstart.main`` on the card at 30 slots:
     exact matcher launches of its three runs, DS's unit cost below
     CU_FULL's (the example's claim); its printed spec lines kept."""
     import contextlib
@@ -3437,6 +3619,7 @@ def main(argv=None) -> int:
     parser.add_argument("--json", type=Path, default=None,
                         help="also write every measurement to this JSON file")
     args = parser.parse_args(argv)
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3453,6 +3636,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.mamba_scan import kernel as skernel
     from repro_torch.kernels.mamba_scan import ops as sops
+    from repro_torch.kernels.mamba_scan import ref as sref
     from repro_torch.kernels.matching import kernel, ops, ref
     from repro_torch.launch import serve, steps
 
@@ -3535,6 +3719,9 @@ def main(argv=None) -> int:
     scan_regs = scan_ptxas(skernel)
     print(f"phase 5 scan kernel (ptxas registers and spills per instance <type, G>): "
           f"{json.dumps(scan_regs)}")
+    scan_bwd_regs = scan_bwd_ptxas(skernel)
+    print(f"phase 5 scan backward kernel (ptxas registers and spills per instance <type, G>): "
+          f"{json.dumps(scan_bwd_regs)}")
 
     t0 = time.perf_counter()
     lm_kres = phase_lm_kernels(torch, fops, fref, fkernel, sops, skernel)
@@ -3544,6 +3731,11 @@ def main(argv=None) -> int:
                                    "simt_ms", "simt_device_ms", "n_split", "rows", "plain_ms",
                                    "bound_ms", "library_ms", "library_device_ms") if k in r}
              for c, r in cases.items()}))
+    scan_bwd = phase_scan_bwd(torch, skernel, sref)
+    print("phase 6 mamba1_scan_bwd vs plain: " + json.dumps(
+        {c: {k: r[k] for k in ("err_of_scale", "grad_err_of_scale", "ms", "forward_ms",
+                               "plain_ms", "bound_ms", "bound_by") if k in r}
+         for c, r in scan_bwd.items()}))
     lse_res = phase_lse(torch, fops, fref, fkernel)
     print("phase 6 flash_attention_decode_lse vs plain: " + json.dumps(
         {c: {k: r[k] for k in ("err_of_scale", "lse_rel_err", "lse_err_of_scale", "n_split",
@@ -3606,7 +3798,8 @@ def main(argv=None) -> int:
     print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    trn = phase_train(torch, models, configs, steps, all_kernels, fkernel, fops, fref, sops)
+    trn = phase_train(torch, models, configs, steps, all_kernels, fkernel, fops, fref, sops,
+                      skernel)
     full = trn["full"]
     print(f"phase 11 train minitron-4b, {full['summary']['n_layers']} layers, B 16 x 128: "
           f"{full['ms_per_step']:.2f} ms per step (steps 2-8), {full['tokens_per_s']:.1f} "
@@ -3749,7 +3942,8 @@ def main(argv=None) -> int:
               f"GiB ({100 * r['peak_share']:.1f} % of the card), run {r['run_s']:.1f} s, "
               f"losses {json.dumps(r['losses'])}, step ms "
               f"{json.dumps([round(x, 2) for x in r['step_ms']])}, attention launches per step "
-              f"{json.dumps(r['attention_per_step'])}, matcher launches per slot "
+              f"{json.dumps(r['attention_per_step'])}, scan launches per step "
+              f"{json.dumps(r['scan_per_step'])}, matcher launches per slot "
               f"{json.dumps(r['matcher_launches_per_slot'])} ({r['slots']} slots)")
     for arch, r in trf["card_vs_cpu"].items():
         print(f"phase 18 reduced {arch} train step, card vs CPU: {json.dumps(r)}")
@@ -3921,12 +4115,15 @@ def main(argv=None) -> int:
     sc = lm_kres["mamba1_scan"]
     pre, dec = sc["prefill_bf16"], sc["decode_bf16"]
     per_call = configs.get_config("falcon-mamba-7b").n_layers
+    falcon_train = trf["cells"]["falcon-mamba-7b"]
     line.append({
         "name": "mamba1_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba1_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan/kernel.py:54",
         "launches": serve_res["falcon-mamba-7b"]["serve_launches"]["mamba1_scan"],
         "launches_per_forward": per_call, "launches_per_decode_step": per_call,
+        "launches_train": falcon_train["launches"]["mamba1_scan"],
+        "launches_per_train_step": falcon_train["scan_per_step"]["mamba1_scan"],
         "max_abs_err": max(r["max_abs_err"] for r in sc.values()),
         "ms": pre["ms"], "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
         "bound_by": pre["bound_by"], "library_ms": None, "shape": pre["shape"],
@@ -3938,6 +4135,29 @@ def main(argv=None) -> int:
                            for r in scan_regs.values()),
         "ptxas": scan_regs,
     })
+    # The backward kernel's main path is falcon-mamba-7b's train step (phase
+    # 18), timed at its shape (train_bf16); "prefill" keeps the B 4 x 2048
+    # case. The Pallas scan has no backward: JAX differentiates
+    # mamba1_scan_chunked (src/repro/kernels/mamba_scan/ops.py:31) off the TPU.
+    tr = scan_bwd["train_bf16"]
+    line.append({
+        "name": "mamba1_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba1_scan_bwd.cu",
+        "replaces": "src/repro/kernels/mamba_scan/kernel.py:54",
+        "launches": falcon_train["launches"]["mamba1_scan_bwd"],
+        "launches_per_train_step": falcon_train["scan_per_step"]["mamba1_scan_bwd"],
+        "launches_phase11": trn["scan"]["launches"]["mamba1_scan_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in scan_bwd.values()),
+        "ms": tr["ms"], "plain_ms": tr["plain_ms"], "bound_ms": tr["bound_ms"],
+        "bound_by": tr["bound_by"], "library_ms": None, "shape": tr["shape"],
+        "forward_ms": tr["forward_ms"], "err_of_scale": tr["err_of_scale"],
+        "prefill": {k: scan_bwd["prefill_bf16"][k] for k in (
+            "shape", "ms", "forward_ms", "plain_ms", "bound_ms", "bound_by", "err_of_scale")},
+        "registers": max(r["registers"] for r in scan_bwd_regs.values()),
+        "spill_bytes": sum(r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
+                           for r in scan_bwd_regs.values()),
+        "ptxas": scan_bwd_regs,
+    })
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
@@ -3946,8 +4166,9 @@ def main(argv=None) -> int:
             "sampler": sampler, "main_path": main_res, "training_ms": train_ms,
             "profile": prof,
             "parity": parity, "lm_build_s": lm_build_s, "wgmma_sass": sass,
-            "scan_ptxas": scan_regs, "decode_ptxas": decode_regs, "simt_ptxas": simt_regs,
-            "lm_kernels": lm_kres,
+            "scan_ptxas": scan_regs, "scan_bwd_ptxas": scan_bwd_regs,
+            "decode_ptxas": decode_regs, "simt_ptxas": simt_regs,
+            "lm_kernels": lm_kres, "scan_bwd": scan_bwd,
             "serve": serve_res, "lm_parity": lm_parity, "fleet": fleet, "train": trn,
             "families": fam, "distributed": dst, "decode_lse": lse_res,
             "tensor_parallel": tp, "tensor_parallel_15": tp15, "split_decode": split,
@@ -3955,6 +4176,7 @@ def main(argv=None) -> int:
             indent=1))
     import torch.distributed as dist
     dist.destroy_process_group()
+    print(f"all phases took {time.perf_counter() - t_start:.1f} s (of a 1,200 s limit)")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

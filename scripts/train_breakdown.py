@@ -9,8 +9,9 @@ weights drawn on the card from seed 0 and a B 16 x 128 batch of the run's
 sampler (frames or patches as ``train._stub_input`` draws them), runs
 ``chip_smoke.profile_train_step`` without a mesh: the median host ms of
 three steps after a warm one, one step under torch.profiler (device busy
-time, launches, the largest kernels, the attention kernels' time and
-launches, which must be the config's exactly) and one step split into its
+time, launches, the largest kernels, the attention kernels' time -- the
+scan kernels' for falcon-mamba-7b -- and the attention and scan launches,
+which must be the config's exactly) and one step split into its
 forward, backward (with the remat recompute) and AdamW spans by CUDA
 events; and the peak memory of it all. Prints the card and one JSON
 object; needs a CUDA card.
@@ -58,7 +59,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         r = cs.profile_train_step(torch, models.build_model(cfg), train, steps, optim, kernels,
-                                  match="flash_")
+                                  match="mamba1_scan" if cfg.family == "ssm" else "flash_")
         r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         r["n_layers"] = cfg.n_layers
         out["archs"][cfg.name] = r

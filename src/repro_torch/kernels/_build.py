@@ -3,9 +3,10 @@
 The library is compiled by ``nvcc`` for ``sm_90a`` (Hopper) with a plain C
 interface and loaded with ``ctypes``: one ``nvcc`` call for a library of
 one source; for several, one ``nvcc`` per source, all started together, then
-a link. It lands in ``build/repro_torch/`` at the root of the checkout, named
-by a hash of the sources and the flags, so an edited source is rebuilt and
-an unchanged one is compiled once per checkout; nvcc's own output is kept
+a link. A source may add flags of its own (``source_flags``, by file name).
+It lands in ``build/repro_torch/`` at the root of the checkout, named by a
+hash of the sources and the flags, so an edited source is rebuilt and an
+unchanged one is compiled once per checkout; nvcc's own output is kept
 beside it (``.log``). Only sources inside this repository are compiled.
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Sequence
+from typing import Mapping, Sequence
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
@@ -42,25 +43,28 @@ def cuda_tool(name: str = "nvcc") -> str:
                        "the CUDA kernels cannot be built")
 
 
-def library_path(name: str, sources: Sequence[Path],
-                 extra_flags: Sequence[str] = ()) -> Path:
+def library_path(name: str, sources: Sequence[Path], extra_flags: Sequence[str] = (),
+                 source_flags: Mapping[str, Sequence[str]] = {}) -> Path:
     digest = hashlib.sha256()
     for flag in (*NVCC_FLAGS, *extra_flags):
         digest.update(flag.encode())
     for src in sources:
         digest.update(Path(src).read_bytes())
+        for flag in source_flags.get(Path(src).name, ()):
+            digest.update(flag.encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str, sources: Sequence[Path], extra_flags: Sequence[str] = ()) -> Path:
-    """Compile ``sources`` with ``NVCC_FLAGS`` and ``extra_flags`` into one
-    shared library unless it exists; returns its path. Raises with nvcc's
-    output when the build fails."""
+def build(name: str, sources: Sequence[Path], extra_flags: Sequence[str] = (),
+          source_flags: Mapping[str, Sequence[str]] = {}) -> Path:
+    """Compile ``sources`` with ``NVCC_FLAGS``, ``extra_flags`` and each
+    source's ``source_flags`` into one shared library unless it exists;
+    returns its path. Raises with nvcc's output when the build fails."""
     sources = [Path(s).resolve() for s in sources]
     for src in sources:
         if REPO_ROOT not in src.parents:
             raise ValueError(f"{src} is not a source of this repository")
-    out = library_path(name, sources, extra_flags)
+    out = library_path(name, sources, extra_flags, source_flags)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -70,11 +74,12 @@ def build(name: str, sources: Sequence[Path], extra_flags: Sequence[str] = ()) -
     objs = [out.with_suffix(f".{i}.{os.getpid()}.o") for i in range(len(sources))] \
         if len(sources) > 1 else []
     if not objs:
-        compiles = [[cuda_tool(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(sources[0])]]
+        compiles = [[cuda_tool(), *NVCC_FLAGS, *extra_flags,
+                     *source_flags.get(sources[0].name, ()), "-o", str(tmp), str(sources[0])]]
     else:
         compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
-        compiles = [[cuda_tool(), *compile_flags, *extra_flags, "-c", "-o", str(obj), str(src)]
-                    for obj, src in zip(objs, sources)]
+        compiles = [[cuda_tool(), *compile_flags, *extra_flags, *source_flags.get(src.name, ()),
+                     "-c", "-o", str(obj), str(src)] for obj, src in zip(objs, sources)]
     try:
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True) for cmd in compiles]
@@ -98,5 +103,6 @@ def build(name: str, sources: Sequence[Path], extra_flags: Sequence[str] = ()) -
     return out
 
 
-def load(name: str, sources: Sequence[Path], extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build(name, sources, extra_flags)))
+def load(name: str, sources: Sequence[Path], extra_flags: Sequence[str] = (),
+         source_flags: Mapping[str, Sequence[str]] = {}) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(name, sources, extra_flags, source_flags)))

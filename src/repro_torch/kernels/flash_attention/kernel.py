@@ -53,6 +53,12 @@ SIMT_ROWS = (16, 32, 64, 128)
 SIMT_WIDE_MAX_HEAD_DIM = 128
 # ptxas reports each kernel's registers and spills into the build log.
 EXTRA_FLAGS = ("-Xptxas", "-v")
+# The SIMT source's 22 instances are the library's longest compile (134 s on
+# an H100 machine's 8 cores, the other sources 10-37 s); nvcc's split
+# compilation optimises them on 8 threads (51 s) into the same SASS,
+# function for function (scripts/nvcc_split.py). It changes one function's
+# SASS in each of the other two sources, so only this one takes it.
+SOURCE_FLAGS = {"flash_attention.cu": ("--split-compile=8",)}
 
 launches = {"flash_attention": 0, "flash_attention_wgmma": 0, "flash_attention_decode": 0,
             "flash_attention_decode_lse": 0}
@@ -70,7 +76,7 @@ def _library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            _lib = bind(_build.load("flash_attention", SOURCES, EXTRA_FLAGS))
+            _lib = bind(_build.load("flash_attention", SOURCES, EXTRA_FLAGS, SOURCE_FLAGS))
     return _lib
 
 
@@ -101,7 +107,7 @@ def build() -> None:
 
 
 def library_path() -> Path:
-    return _build.library_path("flash_attention", SOURCES, EXTRA_FLAGS)
+    return _build.library_path("flash_attention", SOURCES, EXTRA_FLAGS, SOURCE_FLAGS)
 
 
 def wgmma_occupancy(hd: int, skv: int) -> dict:

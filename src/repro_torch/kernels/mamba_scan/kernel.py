@@ -1,4 +1,6 @@
-"""ctypes wrapper of the Mamba-1 selective-scan CUDA kernel (``csrc/``).
+"""ctypes wrapper of the Mamba-1 selective-scan CUDA kernels (``csrc/``):
+the forward (``mamba1_scan.cu``) and its gradient (``mamba1_scan_bwd.cu``),
+one library.
 
 ``mamba1_scan_cuda`` takes CUDA tensors -- x and dt (B, S, DI) of one type
 (float32 or bfloat16), a (DI, N), b and c (B, S, N) of one type (float32 or
@@ -9,8 +11,13 @@ contiguous, a and h0 float32 and contiguous (no copy where they already
 are, as on the models' path). b and c are read in their own type and with
 their own strides along B and S, so the models' strided slices of the
 ``x_proj`` product go in as they are; they need a unit stride along N, and
-the wrapper raises on any other. Each launch adds one to ``launches``. The
-library is built by ``nvcc`` on the first launch, never at import.
+the wrapper raises on any other. ``mamba1_scan_bwd_cuda`` takes the same
+inputs and the gradients of y (B, S, DI) and of the final state (B, DI, N,
+or None) and returns the gradients of x, dt, a, b, c and h0 (the backward
+kernel and its fixed-order reduction over blocks, with a float32
+workspace the wrapper allocates). Each call adds one to its entry of
+``launches``. The library is built by ``nvcc`` on the first launch, never
+at import.
 """
 from __future__ import annotations
 
@@ -23,13 +30,14 @@ import torch
 
 from .. import _build
 
-SOURCES = (Path(__file__).parent / "csrc" / "mamba1_scan.cu",)
+SOURCES = (Path(__file__).parent / "csrc" / "mamba1_scan.cu",
+           Path(__file__).parent / "csrc" / "mamba1_scan_bwd.cu")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 32
 # ptxas reports the kernel's registers and spills into the build log.
 EXTRA_FLAGS = ("-Xptxas", "-v")
 
-launches = {"mamba1_scan": 0}
+launches = {"mamba1_scan": 0, "mamba1_scan_bwd": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -45,6 +53,10 @@ def _library() -> ctypes.CDLL:
             lib.mamba1_scan_launch.restype = i
             lib.mamba1_scan_error_string.argtypes = [i]
             lib.mamba1_scan_error_string.restype = ctypes.c_char_p
+            lib.mamba1_scan_bwd_workspace_floats.argtypes = [i] * 4
+            lib.mamba1_scan_bwd_workspace_floats.restype = i64
+            lib.mamba1_scan_bwd_launch.argtypes = [vp] * 15 + [i] * 4 + [i64] * 4 + [i] * 2 + [vp]
+            lib.mamba1_scan_bwd_launch.restype = i
             _lib = lib
     return _lib
 
@@ -59,60 +71,120 @@ def library_path() -> Path:
 
 
 def reset_launch_counts() -> None:
-    launches["mamba1_scan"] = 0
+    for name in launches:
+        launches[name] = 0
+
+
+def _check(what: str, x, dt, a, b, c, h0, more=()) -> None:
+    """Raise unless the kernels can read these inputs (and ``more``, named
+    CUDA tensors that must lie beside x)."""
+    if x.dtype not in DTYPES or dt.dtype != x.dtype:
+        raise TypeError(f"{what}: x and dt must share float32 or bfloat16, "
+                        f"got {x.dtype}, {dt.dtype}")
+    if b.dtype not in DTYPES or c.dtype != b.dtype:
+        raise TypeError(f"{what}: b and c must share float32 or bfloat16, "
+                        f"got {b.dtype}, {c.dtype}")
+    if x.dim() != 3 or dt.shape != x.shape or a.dim() != 2:
+        raise ValueError(f"{what}: expected x, dt (B,S,DI) and a (DI,N), got "
+                         f"{tuple(x.shape)}, {tuple(dt.shape)}, {tuple(a.shape)}")
+    bsz, s, di = x.shape
+    n = a.shape[1]
+    if a.shape[0] != di or b.shape != (bsz, s, n) or c.shape != (bsz, s, n):
+        raise ValueError(f"{what}: a {tuple(a.shape)}, b {tuple(b.shape)}, "
+                         f"c {tuple(c.shape)} do not fit x {tuple(x.shape)}")
+    if h0 is not None and h0.shape != (bsz, di, n):
+        raise ValueError(f"{what}: h0 must be (B, DI, N), got {tuple(h0.shape)}")
+    if not 0 < n <= MAX_STATE:
+        raise ValueError(f"{what}: state size {n} is not in 1..{MAX_STATE}")
+    if n > 1 and (b.stride(2) != 1 or c.stride(2) != 1):
+        raise ValueError(f"{what}: b and c need a unit stride along N, got strides "
+                         f"{b.stride()} and {c.stride()}")
+    named = [("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)]
+    if h0 is not None:
+        named.append(("h0", h0))
+    for name, t in (*named, *more):
+        if not t.is_cuda:
+            raise ValueError(f"{what}: the CUDA kernel needs CUDA tensors, "
+                             f"got {name} on {t.device}")
+        if t.device != x.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, x on {x.device}")
+
+
+def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(torch.float32).contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.mamba1_scan_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
 
 
 def mamba1_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                      b: torch.Tensor, c: torch.Tensor,
                      h0: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Selective scan -> (y (B, S, DI) in x.dtype, h (B, DI, N) float32)."""
-    if x.dtype not in DTYPES or dt.dtype != x.dtype:
-        raise TypeError(f"mamba1_scan: x and dt must share float32 or bfloat16, "
-                        f"got {x.dtype}, {dt.dtype}")
-    if b.dtype not in DTYPES or c.dtype != b.dtype:
-        raise TypeError(f"mamba1_scan: b and c must share float32 or bfloat16, "
-                        f"got {b.dtype}, {c.dtype}")
-    if x.dim() != 3 or dt.shape != x.shape or a.dim() != 2:
-        raise ValueError(f"mamba1_scan: expected x, dt (B,S,DI) and a (DI,N), got "
-                         f"{tuple(x.shape)}, {tuple(dt.shape)}, {tuple(a.shape)}")
+    _check("mamba1_scan", x, dt, a, b, c, h0)
     bsz, s, di = x.shape
     n = a.shape[1]
-    if a.shape[0] != di or b.shape != (bsz, s, n) or c.shape != (bsz, s, n):
-        raise ValueError(f"mamba1_scan: a {tuple(a.shape)}, b {tuple(b.shape)}, "
-                         f"c {tuple(c.shape)} do not fit x {tuple(x.shape)}")
-    if h0 is not None and h0.shape != (bsz, di, n):
-        raise ValueError(f"mamba1_scan: h0 must be (B, DI, N), got {tuple(h0.shape)}")
-    if not 0 < n <= MAX_STATE:
-        raise ValueError(f"mamba1_scan: state size {n} is not in 1..{MAX_STATE}")
-    if n > 1 and (b.stride(2) != 1 or c.stride(2) != 1):
-        raise ValueError(f"mamba1_scan: b and c need a unit stride along N, got strides "
-                         f"{b.stride()} and {c.stride()}")
-    named = [("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)]
-    if h0 is not None:
-        named.append(("h0", h0))
-    for name, t in named:
-        if not t.is_cuda:
-            raise ValueError(f"mamba1_scan: the CUDA kernel needs CUDA tensors, "
-                             f"got {name} on {t.device}")
-        if t.device != x.device:
-            raise ValueError(f"mamba1_scan: {name} is on {t.device}, x on {x.device}")
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     h = torch.empty((bsz, di, n), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         h.copy_(h0 if h0 is not None else torch.zeros_like(h))
         return y, h
-    f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
-    x, dt, a = x.contiguous(), dt.contiguous(), f32(a)
-    h0 = f32(h0) if h0 is not None else None
+    x, dt, a, h0 = x.contiguous(), dt.contiguous(), _f32(a), _f32(h0)
     with torch.cuda.device(x.device):
         lib = _library()
         err = lib.mamba1_scan_launch(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            h0.data_ptr() if h0 is not None else None, y.data_ptr(), h.data_ptr(),
+            _ptr(h0), y.data_ptr(), h.data_ptr(),
             bsz, s, di, n, b.stride(0), b.stride(1), c.stride(0), c.stride(1),
             DTYPES[x.dtype], DTYPES[b.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        msg = lib.mamba1_scan_error_string(err).decode()
-        raise RuntimeError(f"mamba1_scan kernel launch failed: CUDA error {err} ({msg})")
+    _raise_on(lib, err, "mamba1_scan")
     launches["mamba1_scan"] += 1
     return y, h
+
+
+def mamba1_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                         b: torch.Tensor, c: torch.Tensor, h0: Optional[torch.Tensor],
+                         gy: torch.Tensor, gh: Optional[torch.Tensor] = None) -> tuple:
+    """Gradient of the scan given gy (B, S, DI), the gradient of y, and gh
+    (B, DI, N) or None, that of the final state -> (gx, gdt in x.dtype,
+    ga (DI, N) float32, gb, gc (B, S, N) in b.dtype, gh0 (B, DI, N)
+    float32), as ``ref.mamba1_scan_bwd_ref``."""
+    more = [("gy", gy)] + ([("gh", gh)] if gh is not None else [])
+    _check("mamba1_scan_bwd", x, dt, a, b, c, h0, more)
+    bsz, s, di = x.shape
+    n = a.shape[1]
+    if gy.shape != x.shape:
+        raise ValueError(f"mamba1_scan_bwd: gy must be {tuple(x.shape)}, got {tuple(gy.shape)}")
+    if gh is not None and gh.shape != (bsz, di, n):
+        raise ValueError(f"mamba1_scan_bwd: gh must be (B, DI, N), got {tuple(gh.shape)}")
+    gx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    gdt = torch.empty_like(gx)
+    ga = torch.zeros((di, n), dtype=torch.float32, device=x.device)
+    gb = torch.zeros((bsz, s, n), dtype=b.dtype, device=x.device)
+    gc = torch.zeros_like(gb)
+    gh0 = torch.empty((bsz, di, n), dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        gh0.copy_(gh if gh is not None else torch.zeros_like(gh0))
+        return gx, gdt, ga, gb, gc, gh0
+    x, dt, a, h0, gh = x.contiguous(), dt.contiguous(), _f32(a), _f32(h0), _f32(gh)
+    gy = gy.to(x.dtype).contiguous()
+    with torch.cuda.device(x.device):
+        lib = _library()
+        floats = lib.mamba1_scan_bwd_workspace_floats(bsz, s, di, n)
+        work = torch.empty((floats,), dtype=torch.float32, device=x.device)
+        err = lib.mamba1_scan_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), _ptr(h0),
+            gy.data_ptr(), _ptr(gh), gx.data_ptr(), gdt.data_ptr(), ga.data_ptr(),
+            gb.data_ptr(), gc.data_ptr(), gh0.data_ptr(), work.data_ptr(),
+            bsz, s, di, n, b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+            DTYPES[x.dtype], DTYPES[b.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(lib, err, "mamba1_scan_bwd")
+    launches["mamba1_scan_bwd"] += 1
+    return gx, gdt, ga, gb, gc, gh0

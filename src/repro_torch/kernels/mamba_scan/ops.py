@@ -7,10 +7,13 @@ package runs its Pallas kernel on a TPU -- and ``mamba1_scan_chunked`` for
 CPU tensors. ``"kernel"``, ``"chunked"`` and ``"ref"`` force one path; the
 kernel raises on a CPU tensor. There is no fallback.
 
-Gradients: the kernel has no backward (nor has the Pallas scan), so the
-kernel route raises when autograd records the call; it never falls back to
-the chunked version unasked. The plain versions are differentiated by
-autograd, as JAX differentiates ``mamba1_scan_chunked`` off the TPU.
+Gradients: when autograd records a call, the kernel route goes through
+``KernelScan``, whose forward launches the forward kernel and whose backward
+launches the backward kernel (``csrc/mamba1_scan_bwd.cu``; the Pallas scan
+has none, JAX differentiates ``mamba1_scan_chunked`` off the TPU). A call
+that is not recorded (serving, decode) launches the forward kernel alone.
+It never falls back to the chunked version unasked. The plain versions are
+differentiated by autograd, as JAX differentiates ``mamba1_scan_chunked``.
 
 ``mamba2_scan`` has no kernel, as the JAX package has no Pallas kernel for
 it: its ``auto`` route is the SSD chunked matmul form on every device.
@@ -72,6 +75,28 @@ def mamba1_scan_chunked(x, dt, a, b, c, h0=None, chunk: int = 256):
     return y, h
 
 
+class KernelScan(torch.autograd.Function):
+    """The Mamba-1 scan on the CUDA kernels, differentiable: the forward
+    kernel, and the backward kernel on the saved inputs (x, dt, a, b, c,
+    h0; the states are recomputed by the kernel, not saved). A gradient of
+    the final state that autograd does not give is zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b, c, h0)
+        return kernel.mamba1_scan_cuda(x, dt, a, b, c, h0)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        x, dt, a, b, c, h0 = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros_like(x)
+        grads = kernel.mamba1_scan_bwd_cuda(x, dt, a, b, c, h0, gy, gh)
+        return tuple(g.to(t.dtype) if need else None
+                     for g, t, need in zip(grads, (x, dt, a, b, c, h0), ctx.needs_input_grad))
+
+
 def mamba1_scan(x, dt, a, b, c, h0=None, chunk: int = 256, impl: str = "auto"):
     """Mamba-1 scan entry point of the models: (y, h_final), see ref.py.
     impl: auto | kernel | chunked | ref."""
@@ -82,10 +107,7 @@ def mamba1_scan(x, dt, a, b, c, h0=None, chunk: int = 256, impl: str = "auto"):
     if impl == "kernel":
         if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                            for t in (x, dt, a, b, c, h0)):
-            raise NotImplementedError(
-                "mamba1_scan: the CUDA kernel has no backward yet, so the scan cannot be "
-                "trained on the card (see ROADMAP.md, Queue 2); pass impl='chunked' to "
-                "differentiate the plain version")
+            return KernelScan.apply(x, dt, a, b, c, h0)
         return kernel.mamba1_scan_cuda(x, dt, a, b, c, h0)
     if impl == "chunked":
         return mamba1_scan_chunked(x, dt, a, b, c, h0, chunk)

@@ -1,8 +1,15 @@
 """Sequential (exact) Mamba-1 and Mamba-2 scans in plain PyTorch;
-counterpart of ``repro.kernels.mamba_scan.ref``."""
+counterpart of ``repro.kernels.mamba_scan.ref``; and the Mamba-1 scan's
+gradient (``mamba1_scan_bwd_ref``), the plain version of the backward
+kernel. The Mamba-1 functions compute in float32, or in float64 for
+float64 inputs."""
 from __future__ import annotations
 
 import torch
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def mamba1_scan_ref(x, dt, a, b, c, h0=None):
@@ -18,16 +25,60 @@ def mamba1_scan_ref(x, dt, a, b, c, h0=None):
     """
     bsz, s, di = x.shape
     n = a.shape[1]
-    h = (torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
-         if h0 is None else h0.float())
-    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
-    a = a.float()
+    acc = _acc_dtype(x)
+    h = (torch.zeros((bsz, di, n), dtype=acc, device=x.device)
+         if h0 is None else h0.to(acc))
+    xf, dtf, bf, cf, a = (t.to(acc) for t in (x, dt, b, c, a))
     ys = []
     for t in range(s):
         da = torch.exp(dtf[:, t, :, None] * a[None])  # (B, DI, N)
         h = da * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
     return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def mamba1_scan_bwd_ref(x, dt, a, b, c, h0, gy, gh):
+    """Gradient of ``mamba1_scan_ref`` given gy (B, S, DI), the gradient of
+    y, and gh (B, DI, N), that of the final state (None: zero; gy None:
+    zero). A forward sweep keeps every state, then the adjoint
+    lam_t = dL/dh_t walks back in time:
+
+        lam_{S-1} = gh + C_{S-1} gy_{S-1},  lam_t = C_t gy_t + alpha_{t+1} lam_{t+1}
+        gC_t[n] = sum_d gy_t[d] h_t[d, n]     gB_t[n] = sum_d lam_t dt_t x_t
+        gx_t    = dt_t sum_n lam_t B_t[n]     gdt_t = sum_n lam_t (a_n alpha_t h_{t-1} + x_t B_t[n])
+        ga[d, n] = sum_{b, t} lam_t dt_t alpha_t h_{t-1}     gh0 = alpha_0 lam_0
+
+    with alpha_t = exp(dt_t a). Returns (gx, gdt, ga, gb, gc, gh0) in the
+    types of x, dt, a, b, c and h0 (gh0 float32 without h0)."""
+    bsz, s, di = x.shape
+    n = a.shape[1]
+    acc = _acc_dtype(x)
+    xf, dtf, af, bf, cf = (t.to(acc) for t in (x, dt, a, b, c))
+    gyf = torch.zeros_like(xf) if gy is None else gy.to(acc)
+    h = (torch.zeros((bsz, di, n), dtype=acc, device=x.device)
+         if h0 is None else h0.to(acc))
+    states, alphas = [h], []
+    for t in range(s):
+        alpha = torch.exp(dtf[:, t, :, None] * af)  # (B, DI, N)
+        h = alpha * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+        states.append(h)
+        alphas.append(alpha)
+    carry = torch.zeros_like(h) if gh is None else gh.to(acc)  # alpha_{t+1} lam_{t+1}
+    gx, gdt = torch.empty_like(xf), torch.empty_like(xf)
+    gb, gc = torch.empty_like(bf), torch.empty_like(cf)
+    ga = torch.zeros_like(af)
+    for t in reversed(range(s)):
+        lam = cf[:, t, None, :] * gyf[:, t, :, None] + carry
+        gc[:, t] = torch.einsum("bdn,bd->bn", states[t + 1], gyf[:, t])
+        gb[:, t] = torch.einsum("bdn,bd->bn", lam, dtf[:, t] * xf[:, t])
+        lam_b = torch.einsum("bdn,bn->bd", lam, bf[:, t])
+        gx[:, t] = dtf[:, t] * lam_b
+        w = lam * alphas[t] * states[t]  # lam_t alpha_t h_{t-1}
+        gdt[:, t] = torch.einsum("bdn,dn->bd", w, af) + xf[:, t] * lam_b
+        ga += torch.einsum("bdn,bd->dn", w, dtf[:, t])
+        carry = alphas[t] * lam
+    return (gx.to(x.dtype), gdt.to(dt.dtype), ga.to(a.dtype), gb.to(b.dtype), gc.to(c.dtype),
+            carry.to(torch.float32 if h0 is None else h0.dtype))
 
 
 def mamba2_scan_ref(x, dt, a, b, c, h0=None):

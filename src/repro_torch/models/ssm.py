@@ -4,8 +4,8 @@ counterpart of ``repro.models.ssm`` (the Mamba-2 blocks serve the hybrid,
 
 ``MambaLM`` keeps the JAX package's parameter tree (per-layer parameters
 stacked on a leading L axis under their JAX names). The selective scan goes
-through ``mamba1_scan`` (the CUDA kernel on the card, in prefill and in
-decode); the Mamba-2 scan through ``mamba2_scan`` (plain PyTorch on every
+through ``mamba1_scan`` (the CUDA kernel on the card, in prefill, in decode
+and, with its backward kernel, in training); the Mamba-2 scan through ``mamba2_scan`` (plain PyTorch on every
 device: no kernel, as in the JAX package). Decode is O(1) per token: a K-1
 conv tail and the recurrent state per layer, updated in place by
 ``decode_step``.
@@ -255,8 +255,8 @@ def _logits(cfg: ArchConfig, model: MambaLM, x: torch.Tensor) -> torch.Tensor:
 def forward(cfg: ArchConfig, model: MambaLM, tokens: torch.Tensor,
             impl: str = "auto") -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V). Differentiable as the dense
-    ``forward`` is; on the card the scan's kernel has no backward yet, so a
-    recorded forward raises there (``kernels/mamba_scan/ops.py``)."""
+    ``forward`` is; on the card a recorded forward runs the scan through
+    ``ops.KernelScan`` (the forward and backward kernels)."""
     x = L.embed_rows(model.embed, tokens, L.compute_dtype(cfg))
     x = L.apply_layers(cfg, model.blocks, x,
                        lambda x, p, layer: mamba1_block(cfg, x, p, impl=impl)[0], seq_carry=True)

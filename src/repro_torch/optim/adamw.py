@@ -58,6 +58,19 @@ def adamw_init(params) -> AdamWState:
                       v={k: torch.zeros_like(z) for k, z in zeros.items()})
 
 
+# torch.dot takes at most 2**31 - 1 elements (a 32-bit BLAS count); a larger
+# leaf (falcon-mamba-7b's in_proj stack: 32 x 4096 x 16384 = 2**31) sums
+# its dots over pieces of at most this many, in order.
+DOT_MAX = 2 ** 31 - 1
+
+
+def _sum_sq(g: torch.Tensor) -> torch.Tensor:
+    flat = g.reshape(-1).float()
+    if flat.numel() <= DOT_MAX:
+        return torch.dot(flat, flat)
+    return torch.stack([torch.dot(piece, piece) for piece in flat.split(DOT_MAX)]).sum()
+
+
 def global_norm(grads: Mapping[str, torch.Tensor],
                 shardings: Optional[Mapping[str, Any]] = None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares (float32).
@@ -69,8 +82,7 @@ def global_norm(grads: Mapping[str, torch.Tensor],
     same over ``model`` (one more all-reduce), where the parts of a fused
     leaf that every rank holds whole (Mamba-2's B and C columns) count
     once. The leaves are then summed in the order of the unsharded norm."""
-    sq = torch.stack([torch.dot(g.reshape(-1).float(), g.reshape(-1).float())
-                      for g in grads.values()])
+    sq = torch.stack([_sum_sq(g) for g in grads.values()])
     shardings = shardings or {}
     mesh = next((s.mesh for s in shardings.values() if s is not None), None)
     if mesh is not None:

@@ -822,23 +822,108 @@ def test_attention_function_forward_is_the_kernel_and_grads_the_recompute(card, 
         assert torch.equal(a, c)
 
 
-def test_scan_kernel_route_raises_under_autograd(card):
-    x = torch.zeros((1, 8, 16), device=card, requires_grad=True)
-    dt, b, c = (torch.zeros(s, device=card) for s in ((1, 8, 16), (1, 8, 4), (1, 8, 4)))
-    a = -torch.ones((16, 4), device=card)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sops.mamba1_scan(x, dt, a, b, c)
-    with torch.no_grad():  # not recorded: the kernel launches
-        y, _ = sops.mamba1_scan(x, dt, a, b, c)
-    assert y.shape == x.shape
+# The scan's backward kernel: (B, S, DI, N), type, with h0 and a gradient
+# of the final state, b / c as strided slices of one x_proj-shaped product.
+# The train shape of falcon-mamba-7b, B 2 x 2048, N 8 and 32, odd S and DI.
+SCAN_BWD_CASES = [
+    ((16, 128, 8192, 16), torch.bfloat16, False, True),
+    ((2, 2048, 1024, 16), torch.float32, True, False),
+    ((2, 2048, 1024, 16), torch.bfloat16, True, True),
+    ((3, 77, 1000, 8), torch.float32, True, False),
+    ((2, 300, 512, 32), torch.float32, True, False),
+    ((2, 99, 513, 16), torch.bfloat16, True, True),
+    ((1, 5, 3, 4), torch.float32, False, False),
+]
+# Of each gradient's scale: float32 sums in other orders (and ex2.approx
+# for exp); bf16 gradients are one rounding of float32 sums.
+SCAN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+
+
+def _scan_bwd_inputs(card, shape, dtype, with_h0, strided, seed=5):
+    b, s, di, n = shape
+    rng = np.random.default_rng(seed)
+
+    def t(size, lo=None, hi=None):
+        v = rng.normal(size=size) if lo is None else rng.uniform(lo, hi, size)
+        return torch.as_tensor(v.astype(np.float32), device=card)
+
+    x, dt = t((b, s, di)).to(dtype), t((b, s, di), 0.001, 0.1).to(dtype)
+    a = -torch.exp(t((di, n), 0.0, float(np.log(16.0))))
+    if strided:
+        _, bm, cm = t((b, s, 256 + 2 * n)).to(dtype).split([256, n, n], dim=-1)
+    else:
+        bm, cm = t((b, s, n)).to(dtype), t((b, s, n)).to(dtype)
+    h0, gh = (t((b, di, n)), t((b, di, n))) if with_h0 else (None, None)
+    return x, dt, a, bm, cm, h0, t((b, s, di)).to(dtype), gh
+
+
+def _of_scale(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("case", SCAN_BWD_CASES, ids=str)
+def test_scan_backward_kernel_matches_plain_version(card, case):
+    """Every gradient (x, dt, a, b, c, h0) of the backward kernel against
+    ``mamba1_scan_bwd_ref`` on the same inputs, one launch a call."""
+    from repro_torch.kernels.mamba_scan import kernel as skernel
+    from repro_torch.kernels.mamba_scan.ref import mamba1_scan_bwd_ref
+    shape, dtype, with_h0, strided = case
+    args = _scan_bwd_inputs(card, shape, dtype, with_h0, strided)
+    before = skernel.launches["mamba1_scan_bwd"]
+    got = skernel.mamba1_scan_bwd_cuda(*args)
+    assert skernel.launches["mamba1_scan_bwd"] == before + 1
+    want = mamba1_scan_bwd_ref(*args)
+    for name, g, w in zip(("x", "dt", "a", "b", "c", "h0"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert _of_scale(g, w) <= SCAN_BWD_TOL[dtype], (name, _of_scale(g, w))
+
+
+@pytest.mark.parametrize("case", SCAN_BWD_CASES[:3], ids=str)
+def test_scan_backward_kernel_is_deterministic(card, case):
+    """The cross-block sums go through a workspace summed in a fixed order
+    (no atomics): two calls give the same bits."""
+    from repro_torch.kernels.mamba_scan import kernel as skernel
+    args = _scan_bwd_inputs(card, *case)
+    first = skernel.mamba1_scan_bwd_cuda(*args)
+    second = skernel.mamba1_scan_bwd_cuda(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_scan_route_under_autograd_launches_both_kernels(card):
+    """Under autograd the kernel route goes through ``KernelScan``: the
+    forward kernel once (its outputs bit-equal to the kernel called
+    directly), the backward kernel once in the backward, gradients within
+    1e-4 of scale of autograd through ``mamba1_scan_chunked``; never the
+    plain scan."""
+    from repro_torch.kernels.mamba_scan import kernel as skernel
+    x, dt, a, bm, cm, h0, gy, gh = _scan_bwd_inputs(card, (2, 64, 256, 16), torch.float32,
+                                                    True, False)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, a, bm, cm, h0)]
+    before = dict(skernel.launches)
+    y, h = sops.mamba1_scan(*leaves[:5], h0=leaves[5])
+    assert type(y.grad_fn).__name__ == "KernelScanBackward"
+    direct = skernel.mamba1_scan_cuda(x, dt, a, bm, cm, h0)
+    assert torch.equal(y.detach(), direct[0]) and torch.equal(h.detach(), direct[1])
+    got = torch.autograd.grad((y, h), leaves, (gy, gh))
+    assert {k: skernel.launches[k] - before[k] for k in before} == {
+        "mamba1_scan": 2, "mamba1_scan_bwd": 1}
+    plain = [t.clone().requires_grad_() for t in (x, dt, a, bm, cm, h0)]
+    yp, hp = sops.mamba1_scan(*plain[:5], h0=plain[5], impl="chunked")
+    want = torch.autograd.grad((yp, hp), plain, (gy, gh))
+    for g, w in zip(got, want):
+        assert _of_scale(g, w) <= 1e-4
 
 
 @pytest.mark.parametrize("arch", ["minitron-4b", "falcon-mamba-7b"])
 def test_serving_launches_unchanged_with_trainable_weights(card, arch):
     """A reduced model on the card: the prefill step and a decode step launch
     one kernel a layer (attention or scan) whether or not the weights
-    require grad; a recorded forward of the dense model launches the
-    attention kernel once a layer, and its remat backward once more."""
+    require grad; a recorded forward launches the attention or scan kernel
+    once a layer, and its remat backward once more (the scan's backward
+    kernel once a layer besides)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels.mamba_scan import kernel as skernel
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
@@ -858,12 +943,13 @@ def test_serving_launches_unchanged_with_trainable_weights(card, arch):
         before = counts[name]
         make_serve_step(api)(model, cache, tokens[:, :1])
         assert counts[name] == before + cfg.n_layers
-    if cfg.family == "dense":
-        cfg = dataclasses.replace(cfg, remat=True)
-        api = build_model(cfg, device=card)
-        model = api.init(0).requires_grad_(True)
-        before = counts[name]
-        loss, _ = api.loss(model, {"tokens": tokens, "labels": tokens.long()})
-        assert counts[name] == before + cfg.n_layers
-        torch.autograd.grad(loss, list(model.parameters()))
-        assert counts[name] == before + 2 * cfg.n_layers
+    cfg = dataclasses.replace(cfg, remat=True)
+    api = build_model(cfg, device=card)
+    model = api.init(0).requires_grad_(True)
+    before = dict(counts)
+    loss, _ = api.loss(model, {"tokens": tokens, "labels": tokens.long()})
+    assert counts[name] == before[name] + cfg.n_layers
+    torch.autograd.grad(loss, list(model.parameters()))
+    assert counts[name] == before[name] + 2 * cfg.n_layers
+    if cfg.family == "ssm":  # and the backward kernel once a layer
+        assert counts["mamba1_scan_bwd"] == before["mamba1_scan_bwd"] + cfg.n_layers

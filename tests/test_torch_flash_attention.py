@@ -239,8 +239,12 @@ def test_kernel_source_and_build_flags():
     assert "cudaFuncSetAttribute" in text and "ready.fetch_or" in text  # once an instance
     assert "--fmad=false" not in tkernel.EXTRA_FLAGS and "-v" in tkernel.EXTRA_FLAGS
     assert tkernel.library_path() == _build.library_path("flash_attention", tkernel.SOURCES,
-                                                         tkernel.EXTRA_FLAGS)
+                                                         tkernel.EXTRA_FLAGS, tkernel.SOURCE_FLAGS)
     assert tkernel.library_path() != path  # keyed by both sources and the flags
+    assert tkernel.library_path() != _build.library_path("flash_attention", tkernel.SOURCES,
+                                                         tkernel.EXTRA_FLAGS)
+    # Split compilation (same SASS, measured) for the SIMT source alone.
+    assert set(tkernel.SOURCE_FLAGS) == {tkernel.SOURCES[0].name}
     code = ("import repro_torch.kernels.flash_attention.ops as o, "
             "repro_torch.kernels.mamba_scan.ops as s; "
             "assert o.kernel._lib is None and s.kernel._lib is None")
@@ -251,8 +255,9 @@ def test_kernel_source_and_build_flags():
 @pytest.mark.parametrize("package", ["matching", "flash_attention", "mamba_scan"])
 def test_build_runs_one_nvcc_per_source(package, tmp_path, monkeypatch):
     """A library of one source is one nvcc call (compile and link); a library
-    of several compiles each source in its own nvcc, then links the objects.
-    A stand-in nvcc records its arguments and writes the file it is asked for."""
+    of several compiles each source in its own nvcc, then links the objects;
+    a source's own flags go to its nvcc alone. A stand-in nvcc records its
+    arguments and writes the file it is asked for."""
     import importlib
     mod = importlib.import_module(f"repro_torch.kernels.{package}.kernel")
     fake = tmp_path / "nvcc"
@@ -264,7 +269,8 @@ def test_build_runs_one_nvcc_per_source(package, tmp_path, monkeypatch):
     fake.chmod(0o755)
     monkeypatch.setattr(_build, "cuda_tool", lambda name="nvcc": str(fake))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    out = _build.build(package, mod.SOURCES, mod.EXTRA_FLAGS)
+    source_flags = getattr(mod, "SOURCE_FLAGS", {})
+    out = _build.build(package, mod.SOURCES, mod.EXTRA_FLAGS, source_flags)
     assert out.is_file() and out.parent == tmp_path / "build"
     assert out.with_suffix(".log").is_file()
     assert not list(out.parent.glob("*.o")) and not list(out.parent.glob("*.tmp"))
@@ -280,7 +286,12 @@ def test_build_runs_one_nvcc_per_source(package, tmp_path, monkeypatch):
         assert "-shared" in link and all(arg.endswith(".o") for arg in link[-len(sources):])
     for line in lines:
         assert all(flag in line.split() for flag in mod.EXTRA_FLAGS)
-    assert _build.build(package, mod.SOURCES, mod.EXTRA_FLAGS) == out  # built once
+    for line in lines[:len(sources)] if len(sources) > 1 else lines:
+        own = source_flags.get(Path(line.split()[-1]).name, ())
+        assert all(flag in line.split() for flag in own)
+        assert not any(flag in line.split() for flags in source_flags.values()
+                       for flag in flags if flag not in own)
+    assert _build.build(package, mod.SOURCES, mod.EXTRA_FLAGS, source_flags) == out  # once
     assert len(calls.read_text().splitlines()) == len(lines)
 
 

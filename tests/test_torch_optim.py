@@ -111,6 +111,21 @@ def test_adamw_init_and_global_norm():
            joptim.adamw.global_norm({k: jnp.asarray(v) for k, v in p0.items()}))
 
 
+@pytest.mark.parametrize("limit", [7, 100, 192])
+def test_global_norm_of_leaves_above_the_dot_limit(limit, monkeypatch):
+    """A leaf above ``torch.dot``'s 2**31 - 1 elements (``DOT_MAX``, made
+    small here) sums its dots over pieces: the norm within 1e-6 of the JAX
+    package's; leaves within the limit keep their bits."""
+    p0 = _leaves(6)
+    leaves = {k: torch.as_tensor(v) for k, v in p0.items()}
+    whole = adamw.global_norm(leaves)
+    monkeypatch.setattr(adamw, "DOT_MAX", limit)
+    _close(adamw.global_norm(leaves),
+           joptim.adamw.global_norm({k: jnp.asarray(v) for k, v in p0.items()}))
+    if limit >= max(v.size for v in p0.values()):
+        assert torch.equal(adamw.global_norm(leaves), whole)
+
+
 @pytest.mark.parametrize("total,warmup", [(10, 1), (200, 20), (50, 0)])
 def test_schedules_match_jax(total, warmup):
     for s in (0, 1, warmup, total // 2, total - 1, total + 5):

@@ -12,7 +12,9 @@ Tolerances:
     within 1e-4 of each leaf's scale in float32 (other summation orders),
     2e-2 with bf16 compute and remat (the full config's settings at reduced
     width: bf16 rounds at other places, and the port accumulates the
-    embedding's gradient in float32 where JAX scatters in bf16). The second
+    embedding's gradient in float32 where JAX scatters in bf16); reduced
+    falcon-mamba-7b also through the scan's kernel route (``KernelScan``,
+    its kernels replaced by their plain versions). The second
     moment v is quadratic in the gradient, so it is held on the scale of
     its root, sqrt(v) = |g| sqrt(1 - b2) after one step. Updated
     parameters: AdamW's first step moves an element by about lr whatever
@@ -50,7 +52,6 @@ from repro_torch.examples import train_lm_cocktail  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fkernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import AttnSpec  # noqa: E402
-from repro_torch.kernels.mamba_scan import ops as sops  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.steps import make_prefill_step, make_train_step  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -167,22 +168,20 @@ def test_kernel_function_backward_is_the_chunked_recompute(case, monkeypatch):
     assert len(calls) == 2
 
 
-def test_scan_kernel_route_refuses_autograd():
-    x = torch.zeros((1, 4, 8), requires_grad=True)
-    dt, b, c = torch.zeros((1, 4, 8)), torch.zeros((1, 4, 2)), torch.zeros((1, 4, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sops.mamba1_scan(x, dt, -torch.ones((8, 2)), b, c, impl="kernel")
-
-
 # --------------------------------------------------------------------------
 # One train step against the JAX package's
 # --------------------------------------------------------------------------
 
+# name -> (arch, config changes, tolerance, the models' impl). The "kernel"
+# case runs the scan's kernel route under autograd (``ops.KernelScan``) with
+# its two kernels replaced by their plain versions
+# (``test_torch_mamba_scan_bwd.plain_scan_kernels``): the CPU cannot run them.
 STEP_CASES = {
-    "minitron-4b": ("minitron-4b", {}, 1e-4),
-    "falcon-mamba-7b": ("falcon-mamba-7b", {}, 1e-4),
+    "minitron-4b": ("minitron-4b", {}, 1e-4, "auto"),
+    "falcon-mamba-7b": ("falcon-mamba-7b", {}, 1e-4, "auto"),
+    "falcon-mamba-7b-kernel-scan": ("falcon-mamba-7b", {}, 1e-4, "kernel"),
     "minitron-4b-bf16-remat": ("minitron-4b", {"compute_dtype": "bfloat16", "remat": True},
-                               2e-2),
+                               2e-2, "auto"),
 }
 B, S = 4, 8
 
@@ -202,7 +201,7 @@ def stepped(request):
     """One step of both packages from the same weights and batch: the JAX
     step (outside a mesh) and its gradients, the port's gradients and its
     step from bridged weights and a bridged AdamW state."""
-    arch, changes, tol = STEP_CASES[request.param]
+    arch, changes, tol, impl = STEP_CASES[request.param]
     jcfg = dataclasses.replace(j_reduced(j_get_config(arch)), **changes)
     cfg = ArchConfig(**dataclasses.asdict(jcfg))
     jmodel = j_build_model(jcfg)
@@ -216,16 +215,21 @@ def stepped(request):
     jnew, jnew_opt, jmet = jax.jit(j_make_train_step(jmodel, JAdamWConfig(), total_steps=10))(
         jparams, jopt, jbatch)
 
-    api = build_model(cfg, device="cpu")
+    api = build_model(cfg, impl=impl, device="cpu")
     host = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     model = bridge.lm_params_from_numpy(cfg, host(jparams), "cpu")
     tbatch = {k: torch.as_tensor(v) for k, v in batch.items()}
     model.requires_grad_(True)
     named = dict(model.named_parameters())
-    loss, aux = api.loss(model, tbatch)
-    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
-    opt = bridge.adamw_state_from_numpy(model, host(jopt), "cpu")
-    model, new_opt, met = make_train_step(api, AdamWConfig(), total_steps=10)(model, opt, tbatch)
+    with pytest.MonkeyPatch.context() as m:
+        if impl == "kernel":
+            from test_torch_mamba_scan_bwd import plain_scan_kernels
+            plain_scan_kernels(m)
+        loss, aux = api.loss(model, tbatch)
+        grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+        opt = bridge.adamw_state_from_numpy(model, host(jopt), "cpu")
+        model, new_opt, met = make_train_step(api, AdamWConfig(), total_steps=10)(
+            model, opt, tbatch)
     flat = bridge._flat_names
     return dict(
         tol=tol, loss=float(loss.detach()), jloss=float(jloss), met=met, jmet=jmet, aux=aux,

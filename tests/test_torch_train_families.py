@@ -1,11 +1,11 @@
-"""Cocktail-scheduled training of the MoE, hybrid, encoder-decoder, VLM and
-soft-capped dense families through the port's entry point
+"""Cocktail-scheduled training of the MoE, hybrid, encoder-decoder, VLM,
+soft-capped dense and Mamba-1 families through the port's entry point
 (``launch.train.main``), reduced, on the CPU.
 
-For each of gemma2-27b, mixtral-8x7b, zamba2-2.7b, whisper-base and
-paligemma-3b, ``train.main --reduced --device cpu`` runs 3 steps with a
-scheduler slot every 2 steps, its train step patched to record each batch
-and the state after the first step:
+For each of gemma2-27b, mixtral-8x7b, zamba2-2.7b, whisper-base,
+paligemma-3b and falcon-mamba-7b, ``train.main --reduced --device cpu``
+runs 3 steps with a scheduler slot every 2 steps, its train step patched to
+record each batch and the state after the first step:
 
   * every loss is finite and the scheduler ran its slots;
   * the step's batch carries the frames (whisper) or patches (paligemma)
@@ -25,7 +25,8 @@ card from the config (``attention_calls``, each call's kernel by
 ``kernel.variant``). On the CPU, with bf16 compute and remat as at full
 width, every call a family's differentiated forward makes to the
 attention's plain version (the forward and the remat recompute) has the
-(type, head dim, query rows) that count predicts.
+(type, head dim, query rows) that count predicts (none for falcon-mamba-7b;
+its scan launches are counted by ``tests/test_torch_mamba_scan_bwd.py``).
 """
 from __future__ import annotations
 
@@ -51,7 +52,8 @@ from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 
-ARCHS = ["gemma2-27b", "mixtral-8x7b", "zamba2-2.7b", "whisper-base", "paligemma-3b"]
+ARCHS = ["gemma2-27b", "mixtral-8x7b", "zamba2-2.7b", "whisper-base", "paligemma-3b",
+         "falcon-mamba-7b"]
 STEPS, SLOT_EVERY, BATCH, SEQ, LR = 3, 2, 4, 16, 3e-4
 ARGV = ["--reduced", "--device", "cpu", "--steps", str(STEPS), "--slot-every", str(SLOT_EVERY),
         "--batch", str(BATCH), "--seq", str(SEQ), "--n-cu", "6", "--lr", str(LR),
