@@ -45,8 +45,9 @@ Phases, each fatal on failure:
      8192 steps and at N = 32; the scan's backward kernel, every gradient
      against the plain backward, at falcon-mamba-7b's train shape B 16 x
      128 and at B 4 x 2048 (bf16, strided b / c), and in float32 with h0
-     and the final state's gradient at B 2 x 2048, odd S and DI, N 32;
-     windows, soft-cap, prefix, ragged lengths,
+     and the final state's gradient at B 2 x 2048, odd S and DI, N 32
+     (timed: the call by CUDA events, its three kernels' device ms apart
+     by the profiler); windows, soft-cap, prefix, ragged lengths,
      8,192 and 32,768 keys,
      hd 36 / 64 / 80 / 128 / 256, Hkv 1 / 2 / 8 / 32, rows that see no key,
      in bf16 and float32; minitron-4b's 16-token forward and the bf16
@@ -697,10 +698,11 @@ def scan_ptxas(skernel) -> dict:
 
 def scan_bwd_ptxas(skernel) -> dict:
     """Registers and spills of each instance of the scan's backward kernel
-    (x's type, lanes per channel pair G)."""
-    def short(mangled):  # mamba1_scan_bwd_kernel<T, G>
-        m = re.search(r"mamba1_scan_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)EE", mangled)
-        return f"{'f32' if m.group(1) == 'f' else 'bf16'}_g{m.group(2)}" if m else None
+    (x's type, lanes per channel pair G, the sweep or the walk back)."""
+    def short(mangled):  # mamba1_scan_bwd_kernel<T, G, walk>
+        m = re.search(r"mamba1_scan_bwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E", mangled)
+        return (f"{'f32' if m.group(1) == 'f' else 'bf16'}_g{m.group(2)}_"
+                f"{'walk' if m.group(3) == '1' else 'sweep'}") if m else None
 
     out = ptxas_report(skernel.library_path(), short)
     if not out:
@@ -939,11 +941,32 @@ def cuda_draw(torch, rng, size, lo=None, hi=None):
     return torch.as_tensor(v.astype(np.float32), device="cuda")
 
 
+def scan_bwd_device_ms(torch, call, calls: int = 10) -> dict:
+    """Device ms of each of the backward's kernels, a launch each a call,
+    under torch.profiler over ``calls`` calls: the sweep to the checkpoints,
+    the walk back, the reduction over blocks, and all three. Each is its
+    recorded time over its recorded launches: here the profiler has
+    dropped up to two of a window's records."""
+    prof = profile_window(torch, lambda: [call() for _ in range(calls)], match="mamba1_scan_bwd")
+    out = {"sweep_device_ms": 0.0, "walk_device_ms": 0.0, "reduce_device_ms": 0.0}
+    for name, rec in prof["match_kernels"].items():
+        key = ("reduce" if "reduce_kernel" in name else "walk" if ", true>" in name
+               else "sweep" if ", false>" in name else None)
+        if key is None or not 0 < rec["count"] <= calls:
+            fail(f"mamba1_scan_bwd: the profiler saw {rec['count']} of {name} in {calls} calls")
+        out[f"{key}_device_ms"] = rec["ms"] / rec["count"]
+    if not all(out.values()):
+        fail(f"mamba1_scan_bwd: the profiler missed a backward kernel: {prof['match_kernels']}")
+    out["device_ms"] = sum(out.values())
+    return out
+
+
 def phase_scan_bwd(torch, skernel, sref) -> dict:
     """Phase 6's backward cases: every gradient of ``mamba1_scan_bwd_cuda``
     against ``ref.mamba1_scan_bwd_ref`` on the same inputs (dt drawn as the
     forward cases draw it, a per (channel, state) over 1..16), one launch a
-    call; kernel, plain and bound ms at the timed shapes."""
+    call; at the timed shapes, the call's ms (CUDA events), the device ms of
+    each of its three kernels (profiler), plain and bound ms."""
     out = {}
     for idx, (name, (b, s, di, n), dname, with_h0, strided, timed) in enumerate(SCAN_BWD_CASES):
         rng = np.random.default_rng(300 + idx)
@@ -985,6 +1008,7 @@ def phase_scan_bwd(torch, skernel, sref) -> dict:
         if timed:
             res["ms"] = cuda_ms(torch, lambda: skernel.mamba1_scan_bwd_cuda(*args), reps=20,
                                 warmup=2)
+            res.update(scan_bwd_device_ms(torch, lambda: skernel.mamba1_scan_bwd_cuda(*args)))
             res["forward_ms"] = cuda_ms(torch, lambda: skernel.mamba1_scan_cuda(*args[:6]),
                                         reps=20, warmup=2)
             # warm: the plain backward ran on these inputs for the check above
@@ -1296,8 +1320,9 @@ def profile_window(torch, fn, match: str = "", top: int = 6) -> dict:
     CUDA events, the launch count, the host-clock wall time of the same
     window and the busy share, plus the ``top`` largest kernels; with
     ``match``, also the time and launches of the kernels whose name holds
-    it. The profiler records the card's events alone and they are summed
-    from its raw records: host operators and ``key_averages()`` cost 46.0 s
+    it, summed and (``match_kernels``) each. The profiler records the
+    card's events alone and they are summed from its raw records: host
+    operators and ``key_averages()`` cost 46.0 s
     at an L-DS slot's 92,458 launches on an H100's host, the card's events
     through ``key_averages()`` 19.1 s (the same busy time and launches)."""
     from torch.autograd import DeviceType
@@ -1324,8 +1349,11 @@ def profile_window(torch, fn, match: str = "", top: int = 6) -> dict:
            "top": [{"name": name[:80], "ms": us / 1e3, "count": n}
                    for name, (us, n) in largest]}
     if match:
-        hit = [rec for name, rec in kernels.items() if match in name]
-        out.update(match_ms=sum(us for us, _ in hit) / 1e3, match_count=sum(n for _, n in hit))
+        hit = {name: rec for name, rec in kernels.items() if match in name}
+        out.update(match_ms=sum(us for us, _ in hit.values()) / 1e3,
+                   match_count=sum(n for _, n in hit.values()),
+                   match_kernels={name[:80]: {"ms": us / 1e3, "count": n}
+                                  for name, (us, n) in hit.items()})
     return out
 
 
@@ -3733,8 +3761,9 @@ def main(argv=None) -> int:
              for c, r in cases.items()}))
     scan_bwd = phase_scan_bwd(torch, skernel, sref)
     print("phase 6 mamba1_scan_bwd vs plain: " + json.dumps(
-        {c: {k: r[k] for k in ("err_of_scale", "grad_err_of_scale", "ms", "forward_ms",
-                               "plain_ms", "bound_ms", "bound_by") if k in r}
+        {c: {k: r[k] for k in ("err_of_scale", "grad_err_of_scale", "ms", "device_ms",
+                               "sweep_device_ms", "walk_device_ms", "reduce_device_ms",
+                               "forward_ms", "plain_ms", "bound_ms", "bound_by") if k in r}
          for c, r in scan_bwd.items()}))
     lse_res = phase_lse(torch, fops, fref, fkernel)
     print("phase 6 flash_attention_decode_lse vs plain: " + json.dumps(
@@ -4150,9 +4179,12 @@ def main(argv=None) -> int:
         "max_abs_err": max(r["max_abs_err"] for r in scan_bwd.values()),
         "ms": tr["ms"], "plain_ms": tr["plain_ms"], "bound_ms": tr["bound_ms"],
         "bound_by": tr["bound_by"], "library_ms": None, "shape": tr["shape"],
+        **{k: tr[k] for k in ("device_ms", "sweep_device_ms", "walk_device_ms",
+                              "reduce_device_ms")},
         "forward_ms": tr["forward_ms"], "err_of_scale": tr["err_of_scale"],
         "prefill": {k: scan_bwd["prefill_bf16"][k] for k in (
-            "shape", "ms", "forward_ms", "plain_ms", "bound_ms", "bound_by", "err_of_scale")},
+            "shape", "ms", "device_ms", "sweep_device_ms", "walk_device_ms", "reduce_device_ms",
+            "forward_ms", "plain_ms", "bound_ms", "bound_by", "err_of_scale")},
         "registers": max(r["registers"] for r in scan_bwd_regs.values()),
         "spill_bytes": sum(r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
                            for r in scan_bwd_regs.values()),

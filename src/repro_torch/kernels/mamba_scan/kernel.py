@@ -13,11 +13,11 @@ their own strides along B and S, so the models' strided slices of the
 ``x_proj`` product go in as they are; they need a unit stride along N, and
 the wrapper raises on any other. ``mamba1_scan_bwd_cuda`` takes the same
 inputs and the gradients of y (B, S, DI) and of the final state (B, DI, N,
-or None) and returns the gradients of x, dt, a, b, c and h0 (the backward
-kernel and its fixed-order reduction over blocks, with a float32
-workspace the wrapper allocates). Each call adds one to its entry of
-``launches``. The library is built by ``nvcc`` on the first launch, never
-at import.
+or None) and returns the gradients of x, dt, a, b, c and h0 (three
+kernels of ``mamba1_scan_bwd.cu``: a sweep to the checkpoints, the walk
+back, a fixed-order reduction over blocks, with a float32 workspace the
+wrapper allocates). Each call adds one to its entry of ``launches``. The
+library is built by ``nvcc`` on the first launch, never at import.
 """
 from __future__ import annotations
 
@@ -166,11 +166,14 @@ def mamba1_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"mamba1_scan_bwd: gh must be (B, DI, N), got {tuple(gh.shape)}")
     gx = torch.empty_like(x, memory_format=torch.contiguous_format)
     gdt = torch.empty_like(gx)
-    ga = torch.zeros((di, n), dtype=torch.float32, device=x.device)
-    gb = torch.zeros((bsz, s, n), dtype=b.dtype, device=x.device)
-    gc = torch.zeros_like(gb)
+    # The reduce kernel writes every element of ga, gb and gc.
+    ga = torch.empty((di, n), dtype=torch.float32, device=x.device)
+    gb = torch.empty((bsz, s, n), dtype=b.dtype, device=x.device)
+    gc = torch.empty_like(gb)
     gh0 = torch.empty((bsz, di, n), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
+        for t in (ga, gb, gc):
+            t.zero_()
         gh0.copy_(gh if gh is not None else torch.zeros_like(gh0))
         return gx, gdt, ga, gb, gc, gh0
     x, dt, a, h0, gh = x.contiguous(), dt.contiguous(), _f32(a), _f32(h0), _f32(gh)

@@ -1,8 +1,9 @@
 """Sequential (exact) Mamba-1 and Mamba-2 scans in plain PyTorch;
 counterpart of ``repro.kernels.mamba_scan.ref``; and the Mamba-1 scan's
 gradient (``mamba1_scan_bwd_ref``), the plain version of the backward
-kernel. The Mamba-1 functions compute in float32, or in float64 for
-float64 inputs."""
+kernel, with the same gradient by the kernel's schedule for tests
+(``mamba1_scan_bwd_schedule_reference``). The Mamba-1 functions compute in
+float32, or in float64 for float64 inputs."""
 from __future__ import annotations
 
 import torch
@@ -79,6 +80,63 @@ def mamba1_scan_bwd_ref(x, dt, a, b, c, h0, gy, gh):
         carry = alphas[t] * lam
     return (gx.to(x.dtype), gdt.to(dt.dtype), ga.to(a.dtype), gb.to(b.dtype), gc.to(c.dtype),
             carry.to(torch.float32 if h0 is None else h0.dtype))
+
+
+def mamba1_scan_bwd_schedule_reference(x, dt, a, b, c, h0, gy, gh, chunk: int):
+    """``mamba1_scan_bwd_ref``'s gradients by the backward kernel's schedule
+    and algebra (``csrc/mamba1_scan_bwd.cu``), for tests only: the sequence
+    zero-padded to whole chunks of ``chunk`` steps (a padded step has alpha
+    1 and adds nothing); a forward sweep keeping the state at the start of
+    every chunk; then, chunk by chunk from the last, the chunk
+    recomputed from its checkpoint, keeping alpha_t and u_t = alpha_t
+    h_{t-1} and summing gC_t = sum_d gy_t h_t, and walked back:
+
+        lam_t = C_t gy_t + r,  w = lam_t u_t,  r <- alpha_t lam_t
+        gB_t = sum_d lam_t dt_t x_t      gx_t = dt_t sum_n lam_t B_t
+        gdt_t = sum_n w a + x_t sum_n lam_t B_t      ga += sum_b w dt_t
+
+    Same arguments and results as ``mamba1_scan_bwd_ref``."""
+    bsz, s, di = x.shape
+    n = a.shape[1]
+    acc = _acc_dtype(x)
+    pad = -s % chunk
+    xf, dtf, bf, cf = (torch.nn.functional.pad(t.to(acc), (0, 0, 0, pad)) for t in (x, dt, b, c))
+    gyf = (torch.zeros_like(xf) if gy is None
+           else torch.nn.functional.pad(gy.to(acc), (0, 0, 0, pad)))
+    af = a.to(acc)
+    dx = dtf * xf  # (B, S', DI)
+    n_chunks = (s + pad) // chunk
+    h = (torch.zeros((bsz, di, n), dtype=acc, device=x.device)
+         if h0 is None else h0.to(acc))
+    checkpoints = []
+    for j in range(n_chunks - 1):  # pass 1
+        checkpoints.append(h)
+        for t in range(j * chunk, (j + 1) * chunk):
+            h = torch.exp(dtf[:, t, :, None] * af) * h + dx[:, t, :, None] * bf[:, t, None, :]
+    checkpoints.append(h)
+    r = torch.zeros_like(h) if gh is None else gh.to(acc)
+    gx, gdt = torch.empty_like(xf), torch.empty_like(xf)
+    gb, gc = torch.empty_like(bf), torch.empty_like(cf)
+    ga = torch.zeros_like(af)
+    for j in reversed(range(n_chunks)):  # pass 2
+        h, alphas, us = checkpoints[j], {}, {}
+        steps = range(j * chunk, (j + 1) * chunk)
+        for t in steps:  # the recompute
+            alphas[t] = torch.exp(dtf[:, t, :, None] * af)
+            us[t] = alphas[t] * h
+            h = us[t] + dx[:, t, :, None] * bf[:, t, None, :]
+            gc[:, t] = torch.einsum("bdn,bd->bn", h, gyf[:, t])
+        for t in reversed(steps):  # the walk back
+            lam = cf[:, t, None, :] * gyf[:, t, :, None] + r
+            w = lam * us[t]
+            gb[:, t] = torch.einsum("bdn,bd->bn", lam, dx[:, t])
+            lam_b = torch.einsum("bdn,bn->bd", lam, bf[:, t])
+            gx[:, t] = dtf[:, t] * lam_b
+            gdt[:, t] = torch.einsum("bdn,dn->bd", w, af) + xf[:, t] * lam_b
+            ga += torch.einsum("bdn,bd->dn", w, dtf[:, t])
+            r = alphas[t] * lam
+    return (gx[:, :s].to(x.dtype), gdt[:, :s].to(dt.dtype), ga.to(a.dtype), gb[:, :s].to(b.dtype),
+            gc[:, :s].to(c.dtype), r.to(torch.float32 if h0 is None else h0.dtype))
 
 
 def mamba2_scan_ref(x, dt, a, b, c, h0=None):

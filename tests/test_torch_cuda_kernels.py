@@ -824,7 +824,10 @@ def test_attention_function_forward_is_the_kernel_and_grads_the_recompute(card, 
 
 # The scan's backward kernel: (B, S, DI, N), type, with h0 and a gradient
 # of the final state, b / c as strided slices of one x_proj-shaped product.
-# The train shape of falcon-mamba-7b, B 2 x 2048, N 8 and 32, odd S and DI.
+# The train shape of falcon-mamba-7b, B 2 x 2048, N 8 and 32, odd S and DI;
+# then the edges of the kernel's 8-step chunk (S 7, 8, 9) and DI 65 (one
+# channel in a second block, rows not 16-byte aligned) at N 1 and 32. S 300
+# and 2048 keep more checkpoints than shared memory holds.
 SCAN_BWD_CASES = [
     ((16, 128, 8192, 16), torch.bfloat16, False, True),
     ((2, 2048, 1024, 16), torch.float32, True, False),
@@ -833,6 +836,11 @@ SCAN_BWD_CASES = [
     ((2, 300, 512, 32), torch.float32, True, False),
     ((2, 99, 513, 16), torch.bfloat16, True, True),
     ((1, 5, 3, 4), torch.float32, False, False),
+    ((2, 7, 256, 16), torch.bfloat16, True, True),
+    ((2, 8, 256, 16), torch.float32, True, False),
+    ((2, 9, 256, 16), torch.bfloat16, False, True),
+    ((2, 33, 65, 1), torch.float32, True, False),
+    ((2, 33, 65, 32), torch.bfloat16, True, True),
 ]
 # Of each gradient's scale: float32 sums in other orders (and ex2.approx
 # for exp); bf16 gradients are one rounding of float32 sums.

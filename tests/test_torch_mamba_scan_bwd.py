@@ -32,7 +32,8 @@ from repro.kernels.mamba_scan.ref import mamba1_scan_ref as j_scan_ref  # noqa: 
 from repro_torch.configs import ArchConfig  # noqa: E402
 from repro_torch.kernels.mamba_scan import kernel as skernel  # noqa: E402
 from repro_torch.kernels.mamba_scan import ops as sops  # noqa: E402
-from repro_torch.kernels.mamba_scan.ref import mamba1_scan_bwd_ref, mamba1_scan_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan.ref import (  # noqa: E402
+    mamba1_scan_bwd_ref, mamba1_scan_bwd_schedule_reference, mamba1_scan_ref)
 from repro_torch.models import build_model  # noqa: E402
 from test_torch_train import _within  # noqa: E402
 
@@ -106,6 +107,50 @@ def test_bwd_ref_matches_jax_vjp(case, target):
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     for name, g, w in zip(names, got, want):
         _within(g.float().numpy(), np.asarray(w, np.float32), tol, name)
+
+
+_JAX_CHUNKED_GRADS: dict = {}
+
+
+def _jax_chunked_grads(case):
+    """``jax.vjp`` of the JAX package's ``mamba1_scan_chunked`` at a case
+    of BWD_CASES (its own chunk), once per case."""
+    if case not in _JAX_CHUNKED_GRADS:
+        shape, dtype, with_h0, with_gh, chunk = BWD_CASES[case]
+        _, jx = _bwd_inputs(shape, dtype, with_h0, with_gh)
+        names = NAMES if with_h0 else NAMES[:5]
+
+        def scan(*args):
+            return j_scan_chunked(*args[:5], h0=args[5] if with_h0 else None, chunk=chunk)
+
+        _, vjp = jax.vjp(scan, *(jx[k] for k in names))
+        _JAX_CHUNKED_GRADS[case] = [np.asarray(w, np.float32) for w in vjp((jx["gy"], jx["gh"]))]
+    return _JAX_CHUNKED_GRADS[case]
+
+
+@pytest.mark.parametrize("target", ["chunked", "plain"])
+@pytest.mark.parametrize("chunk", [1, 3, 8, 16, 32])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_bwd_schedule_reference(case, chunk, target):
+    """The backward kernel's schedule and algebra in plain PyTorch
+    (checkpoints every ``chunk`` steps, the chunk recomputed with alpha and
+    u = alpha h_{t-1} kept, the sequence zero-padded to whole chunks: S 24,
+    32 and 40 over chunks of 3, 16 and 32) against ``jax.vjp`` of the JAX
+    package's chunked scan and against ``mamba1_scan_bwd_ref``."""
+    shape, dtype, with_h0, with_gh, _ = BWD_CASES[case]
+    port, _ = _bwd_inputs(shape, dtype, with_h0, with_gh)
+    args = [port[k] for k in NAMES] + [port["gy"], port["gh"]]
+    got = mamba1_scan_bwd_schedule_reference(*args, chunk=chunk)
+    names = NAMES if with_h0 else NAMES[:5]
+    if target == "chunked":
+        want = _jax_chunked_grads(case)
+    else:
+        want = [w.float().numpy() for w in mamba1_scan_bwd_ref(*args)]
+    assert got[0].dtype == port["x"].dtype and got[3].dtype == port["b"].dtype
+    assert got[2].dtype == got[5].dtype == torch.float32 and got[3].shape == port["b"].shape
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    for name, g, w in zip(names, got, want):
+        _within(g.float().numpy(), w, tol, name)
 
 
 def plain_scan_kernels(monkeypatch) -> dict:
