@@ -190,6 +190,19 @@ Phases, each fatal on failure:
      holds minitron-4b's (an MoE's routing equal on both sides); and
      ``repro_torch.examples.quickstart`` on the card at 30 slots (exact
      matcher launches, DS's unit cost below CU_FULL's).
+ 19. the paper's evaluation (``repro_torch.paper``): the three matchers
+     bit-equal to their plain versions at the figures' N x M; (a) Fig. 7 through
+     ``repro_torch.examples.traffic_prediction`` at its 40 slots (the
+     traffic predictor trained on what DS, NO-SDC, NO-SLT and NO-LSA
+     schedule at the testbed's 6 CUs x 3 ECs), and one ``train_batch`` on
+     the card against the CPU within 1e-5 of scale; (b) Figs. 5, 6 and 8
+     at 20 of their 60 slots; (c) Fig. 9 at its five points: DS, EC_SELF
+     and CU_FULL at 20 slots, EC_FULL at 4 (cuts for the script's time);
+     per run ms a slot and exact matcher launches counted around it, one
+     more slot of each run on the card against the CPU (decisions equal,
+     the rest within 1e-5 of scale), every value finite,
+     ``full_allocate``'s share of the EC_FULL slots; each figure's checks
+     printed beside the JAX package's, as findings.
 Phase 6 also holds the decode kernel's log-sum-exp output against its plain
 version (granite-20b's decode on one of phase 14's ranks, a row that sees
 no key, a rank's half of a 32,768-slot cache).
@@ -214,6 +227,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -233,8 +247,11 @@ BIG_SHAPE = (4096, 64)
 
 
 def sim_config(core, n_cu: int, n_ec: int):
-    """The paper's Sec. IV-C simulation constants (f_base cycling over the
-    four EC classes) at N x M."""
+    """The paper's Sec. IV-C simulation constants at N x M, f_base cycling
+    over the four EC classes. ``repro_torch.paper.common.sim_config`` draws
+    the classes from ``default_rng(0)`` instead, as the JAX package's figures
+    do; phases 2-4 keep the cycled speeds so that their numbers stay
+    comparable from one version of this script to the next."""
     f_classes = (8000.0, 14000.0, 20000.0, 48000.0)
     return core.CocktailConfig(
         n_cu=n_cu, n_ec=n_ec, delta=1e-4, eps=0.2, q0=5000.0, zeta=500.0,
@@ -370,19 +387,22 @@ MATCHER_TIMINGS = (("main", 1, MAIN_SHAPE, "dense"), ("big", 1, BIG_SHAPE, "dens
                    ("row_dominated", 1, MAIN_SHAPE, "row_dominated"))
 
 
+# The matchers' cases held against their plain versions (phases 2 and 19).
+MATCHER_CASES = ("dense", "masked", "ties", "batched", "nan")
+MATCHER_EXTRA_CASES = {"collection": ("near_tie",), "assignment": ("row_dominated",),
+                       "pairing": ("row_dominated",)}
+
+
 def phase_kernels(torch, ops, kernel, ref):
     names = {"collection": "greedy_collection", "assignment": "greedy_assignment",
              "pairing": "greedy_pairing"}
-    cases = ("dense", "masked", "ties", "batched", "nan")
-    extra = {"collection": ("near_tie",), "assignment": ("row_dominated",),
-             "pairing": ("row_dominated",)}
     results = {}
     for idx, op in enumerate(("collection", "assignment", "pairing")):
         checks = []
         max_err = 0.0
         for shape in (MAIN_SHAPE, BIG_SHAPE):
             pshape = (shape[1], shape[1]) if op == "pairing" else shape
-            for c, case in enumerate(cases + extra[op]):
+            for c, case in enumerate(MATCHER_CASES + MATCHER_EXTRA_CASES[op]):
                 args, masks = kernel_inputs(torch, op, pshape, case, 1000 * idx + 10 * c + shape[1])
                 got = op_call(ops, op, args, masks, "kernel")
                 want = op_call(ops, op, args, masks, "ref")
@@ -3642,6 +3662,336 @@ def decode_gaps(r: dict) -> str:
             f"{r['decode_vs_forward_shape']}")
 
 
+# --------------------------------------------------------------------------
+# Phase 19: the paper's evaluation (repro_torch.paper) on the card
+# --------------------------------------------------------------------------
+
+# Fig. 7 keeps its 40 slots (the example's default); Figs. 5, 6, 8 and 9 run
+# PAPER_SLOTS of their 60, and Fig. 9's EC_FULL PAPER_ECFULL_SLOTS (2.2 s a
+# slot at 20 x 8 on the card: full_allocate's Python loops), for the
+# script's time (the whole figures: ``python -m repro_torch.paper.paper_figs``).
+PAPER_FIG7_SLOTS = 40
+PAPER_SLOTS = 20
+PAPER_ECFULL_SLOTS = 4
+# The figures' N x M: the testbed, then Fig. 9's five points.
+PAPER_SHAPES = ((6, 3), (20, 3), (20, 5), (20, 8), (10, 5), (40, 5))
+# Matcher launches a slot by spec (core/datasche.py): the skew-aware
+# collection launches greedy_collection, the plain one (NO-SDC, and L-DS's
+# virtual step) greedy_assignment, CU_FULL's none; every training policy but
+# ECFULL's and ECSELF's launches greedy_pairing once (L-DS's virtual linear
+# step once more).
+PAPER_PER_SLOT = {
+    "ds": DS_PER_SLOT, "no-slt": DS_PER_SLOT, "no-lsa": DS_PER_SLOT,
+    "no-sdc": {"greedy_collection": 0, "greedy_assignment": 1, "greedy_pairing": 1},
+    "l-ds": QUICKSTART_PER_SLOT["l-ds"], "cufull": QUICKSTART_PER_SLOT["cufull"],
+    "ecfull": {"greedy_collection": 1, "greedy_assignment": 0, "greedy_pairing": 0},
+    "ecself": {"greedy_collection": 1, "greedy_assignment": 0, "greedy_pairing": 0}}
+# The figures' checks in the JAX package's own run on the CPU (60 slots,
+# Fig. 7 40, seed 0), printed beside the card's. The two packages' random
+# streams differ and the card's figures are cut to PAPER_SLOTS, so these are
+# findings, not gates; the card is held to the CPU by the matchers at the
+# figures' shapes and by one slot of every run (``PaperRuns``).
+PAPER_REFERENCE_CHECKS = {"fig7/ds_at_least_competitive": "true", "fig5/ds_most_even": "false",
+                          "fig6/ds_mean_below_ablations": "true", "fig8/theory_checks": "3/3",
+                          "fig9/max_cost_reduction_vs_cufull_pct": "19.1"}
+PAPER_TRAIN_TOL = 1e-5  # of each leaf's scale: one train_batch, card against CPU
+PAPER_SLOT_TOL = 1e-5  # of each tensor's scale: one slot, card against CPU (phase 4's)
+
+
+def paper_matchers(torch, ops, kernels) -> dict:
+    """The three matchers on the card against their plain versions at the
+    figures' shapes (collection and assignment N x M, pairing M x M) in
+    phase 2's cases; fails unless bit-equal. Returns the cases checked by
+    kernel."""
+    checked = {}
+    for idx, op in enumerate(("collection", "assignment", "pairing")):
+        shapes = sorted({(m, m) if op == "pairing" else (n, m) for n, m in PAPER_SHAPES})
+        for shape in shapes:
+            for c, case in enumerate(MATCHER_CASES + MATCHER_EXTRA_CASES[op]):
+                args, masks = kernel_inputs(torch, op, shape, case,
+                                            1000 * idx + 10 * c + 64 * shape[0] + shape[1])
+                got = op_call(ops, op, args, masks, "kernel")
+                want = op_call(ops, op, args, masks, "ref")
+                if not torch.equal(got, want):
+                    fail(f"phase 19: greedy_{op} differs from its plain version at {shape} "
+                         f"({case}): max abs err {float((got - want).abs().max())}")
+                checked[f"greedy_{op}"] = checked.get(f"greedy_{op}", 0) + 1
+    reset_counts(*kernels)
+    return checked
+
+
+class PaperRuns:
+    """Stands in for ``paper_figs.timed_run``: the matcher launches of each
+    run are counted around it (exactly ``PAPER_PER_SLOT`` of its spec times
+    its slots, no other kernel), its ms a slot kept; then one more slot of
+    its final state runs on the card and on the CPU (once per config and
+    spec): decisions bit-equal, every other tensor within PAPER_SLOT_TOL of
+    its scale."""
+
+    def __init__(self, torch, core, bridge, kernels, timed_run):
+        self.torch, self.core, self.bridge = torch, core, bridge
+        self.kernels, self.timed_run = kernels, timed_run
+        self.figure, self.runs, self.slot_err, self.in_run = None, [], {}, False
+
+    def __call__(self, cfg, spec, slots, device):
+        reset_counts(*self.kernels)
+        self.in_run = True
+        st, us = self.timed_run(cfg, spec, slots, device)
+        self.in_run = False
+        what = f"phase 19 {self.figure} {spec.name} at {cfg.n_cu} x {cfg.n_ec}, eps {cfg.eps}"
+        counts = expect_counts(self.kernels, what, {k: v * slots for k, v in
+                                                    PAPER_PER_SLOT[spec.name].items()})
+        self.runs.append({"figure": self.figure, "shape": [cfg.n_cu, cfg.n_ec], "eps": cfg.eps,
+                          "spec": spec.name, "slots": slots, "ms_per_slot": us / 1e3,
+                          "launches": {k: counts[k] for k in DS_PER_SLOT}})
+        key = f"{cfg.n_cu}x{cfg.n_ec}/eps{cfg.eps}/{spec.name}"
+        if key not in self.slot_err:
+            self.slot_err[key] = self.card_vs_cpu(cfg, spec, st, what)
+        reset_counts(*self.kernels)
+        return st, us
+
+    def card_vs_cpu(self, cfg, spec, st, what: str) -> float:
+        torch, core, bridge = self.torch, self.core, self.bridge
+        net = core.slot_network(cfg, st)
+        new_c, rec_c, dec_c = core.step(cfg, spec, st, net)
+        to_cpu = lambda t: bridge.from_numpy(bridge.to_numpy(t), "cpu")  # noqa: E731
+        new_p, rec_p, dec_p = core.step(cfg, spec, to_cpu(st), to_cpu(net))
+        for f in ("alpha", "theta", "z"):
+            if not torch.equal(getattr(dec_c, f).cpu(), getattr(dec_p, f)):
+                fail(f"{what}: the next slot's decision {f} differs between the card and the CPU")
+        pairs = [(f"dec.{f}", getattr(dec_c, f), getattr(dec_p, f)) for f in ("x", "y")]
+        pairs += [(f"rec.{f}", getattr(rec_c, f), getattr(rec_p, f)) for f in rec_c._fields]
+        pairs += [(f"{g}.{f}", getattr(getattr(new_c, g), f), getattr(getattr(new_p, g), f))
+                  for g in ("queues", "mults", "emp_mults") for f in getattr(new_c, g)._fields]
+        worst = 0.0
+        for name, a, b in pairs:
+            err = float((a.double().cpu() - b.double()).abs().max()) / (
+                float(b.abs().max()) or 1.0)
+            if err > PAPER_SLOT_TOL:
+                fail(f"{what}: the next slot's {name} differs between the card and the CPU by "
+                     f"{err:.3e} of its scale (limit {PAPER_SLOT_TOL})")
+            worst = max(worst, err)
+        return worst
+
+
+def figure_output(what: str, fn, *args):
+    """``fn(*args)``, its printed lines echoed under ``phase 19 <what>``.
+    Returns (fn's result, {line name: (us a call, derived)}, seconds)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    seconds = time.perf_counter() - t0
+    emitted = {}
+    for line in buf.getvalue().splitlines():
+        print(f"phase 19 {what}: {line}")
+        parts = line.split(",", 2)
+        if len(parts) == 3 and parts[0].startswith("fig"):
+            emitted[parts[0]] = (float(parts[1]), parts[2])
+    return result, emitted, seconds
+
+
+def all_finite(values) -> bool:
+    """Every number in ``values`` (a number, a sequence of numbers, or a
+    dict of these or of dicts) is finite."""
+    if isinstance(values, dict):
+        return all(all_finite(v) for v in values.values())
+    return bool(np.all(np.isfinite(np.asarray(values, dtype=np.float64))))
+
+
+def paper_train_batch(torch, fig7, device: str = "cuda") -> dict:
+    """One ``train_batch`` of the Fig. 7 model from the same seeded weights
+    on ``device`` and on the CPU, on one numpy-seeded batch of ``BATCH``
+    records: loss and every leaf within PAPER_TRAIN_TOL of its scale; ms a
+    call on ``device`` (CUDA events) and on the CPU (host clock)."""
+    rng = np.random.default_rng(0)
+    batch = (rng.uniform(0.0, 1.0, (fig7.BATCH, 4)).astype(np.float32),
+             rng.uniform(0.2, 0.8, fig7.BATCH).astype(np.float32),
+             np.ones(fig7.BATCH, np.float32))
+    models, args, losses = {}, {}, {}
+    for dev in (device, "cpu"):
+        models[dev] = fig7.TrafficMLP(generator=torch.Generator().manual_seed(0), device=dev)
+        args[dev] = [torch.as_tensor(a, device=dev) for a in batch]
+        losses[dev] = float(fig7.train_batch(models[dev], *args[dev]))
+    cpu = dict(models["cpu"].named_parameters())
+    errs = {name: float((p.detach().cpu() - cpu[name].detach()).abs().max()
+                        / cpu[name].detach().abs().max())
+            for name, p in models[device].named_parameters()}
+    errs["loss"] = abs(losses[device] - losses["cpu"]) / abs(losses["cpu"])
+    if not (all_finite(losses) and max(errs.values()) <= PAPER_TRAIN_TOL):
+        fail(f"phase 19 (a): train_batch on the card against the CPU: losses {losses}, "
+             f"errors of scale {errs} (limit {PAPER_TRAIN_TOL})")
+    ms = cuda_ms(torch, lambda: fig7.train_batch(models[device], *args[device]), reps=50,
+                 warmup=5)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fig7.train_batch(models["cpu"], *args["cpu"])
+    return {"losses": losses, "max_err_of_scale": max(errs.values()), "errs_of_scale": errs,
+            "ms": ms, "cpu_ms": (time.perf_counter() - t0) / 20 * 1e3}
+
+
+def phase_paper(torch, core, bridge, ops, kernels, training_alloc,
+                device: str | None = None) -> dict:
+    """Phase 19: the matchers at the figures' shapes (``paper_matchers``);
+    (a) ``examples.traffic_prediction`` (Fig. 7) at its 40 slots, each
+    spec's matcher launches counted around its ``step`` calls, and one
+    ``train_batch`` card against CPU; (b) Figs. 5, 6 and 8 at PAPER_SLOTS;
+    (c) ``fig9_point`` of DS, EC_SELF and CU_FULL at each point at
+    PAPER_SLOTS, then of EC_FULL at PAPER_ECFULL_SLOTS, ``full_allocate``
+    timed there (a synchronise on each side), and the headline reduction.
+    Every run of (b) and (c) goes through ``PaperRuns``. Finite values
+    throughout; the checks are returned as findings. The figures run on
+    ``device`` (the entry points' default, the card, when None)."""
+    from repro_torch.core import CU_FULL, DS, EC_FULL, EC_SELF
+    from repro_torch.examples import traffic_prediction
+    from repro_torch.paper import common, fig7_accuracy, paper_figs
+    out = {"fig7_slots": PAPER_FIG7_SLOTS, "slots": PAPER_SLOTS,
+           "ecfull_slots": PAPER_ECFULL_SLOTS, "figures": {}, "checks": {}}
+    t0 = time.perf_counter()
+    out["matchers"] = paper_matchers(torch, ops, kernels)
+    out["matchers_s"] = time.perf_counter() - t0
+
+    fig7_counts = {}
+    real_step = fig7_accuracy.step
+
+    def counted_step(cfg, spec, st, **kw):
+        res = real_step(cfg, spec, st, **kw)
+        counts = fig7_counts.setdefault(spec.name, {})
+        for k, v in all_counts(*kernels).items():
+            counts[k] = counts.get(k, 0) + v
+        reset_counts(*kernels)
+        return res
+
+    reset_counts(*kernels)
+    with mock.patch.dict(os.environ, COCKTAIL_EXAMPLE_SLOTS=str(PAPER_FIG7_SLOTS)), \
+            mock.patch.object(fig7_accuracy, "step", counted_step):
+        accs, emitted, seconds = figure_output("fig7", traffic_prediction.main,
+                                               ["--device", device] if device else [])
+    torch.cuda.synchronize()
+    expect_counts(kernels, "phase 19 (a) outside the scheduler's steps", {})
+    if sorted(accs) != sorted(s.name for s in fig7_accuracy.SPECS) or any(
+            len(a) != PAPER_FIG7_SLOTS // fig7_accuracy.EVAL_EVERY or not all_finite(a)
+            or not all(0.0 <= x <= 1.0 for x in a) for a in accs.values()):
+        fail(f"phase 19 (a): Fig. 7's accuracies {json.dumps(accs)}")
+    runs7 = []
+    for name, counts in fig7_counts.items():
+        want = {k: PAPER_PER_SLOT[name].get(k, 0) * PAPER_FIG7_SLOTS for k in counts}
+        if counts != want:
+            fail(f"phase 19 (a) {name}: launches {counts}, expected {want}")
+        runs7.append({"figure": "fig7", "shape": [6, 3], "eps": 0.1, "spec": name,
+                      "slots": PAPER_FIG7_SLOTS,
+                      "ms_per_slot": emitted[f"fig7/accuracy/{name}"][0] / 1e3,
+                      "launches": {k: counts[k] for k in DS_PER_SLOT}})
+    out["figures"]["fig7"] = {"seconds": seconds, "values": accs}
+    out["checks"].update({k: v[1] for k, v in emitted.items() if k in PAPER_REFERENCE_CHECKS})
+    out["train_batch"] = paper_train_batch(torch, fig7_accuracy, device or "cuda")
+
+    runs = PaperRuns(torch, core, bridge, kernels, paper_figs.timed_run)
+    with mock.patch.object(paper_figs, "timed_run", runs):
+        for name, fn in (("fig5", paper_figs.fig5_collection_evenness),
+                         ("fig6", paper_figs.fig6_training_evenness),
+                         ("fig8", paper_figs.fig8_ds_vs_lds)):
+            runs.figure = name
+            vals, emitted, seconds = figure_output(name, fn, device, PAPER_SLOTS)
+            if not all_finite(vals):
+                fail(f"phase 19 (b) {name}: values {vals}")
+            out["figures"][name] = {"seconds": seconds}
+            out["checks"].update({k: v[1] for k, v in emitted.items()
+                                  if k in PAPER_REFERENCE_CHECKS})
+
+        runs.figure = "fig9"
+        costs, t9 = {}, time.perf_counter()
+        for key, n_cu, n_ec in paper_figs.FIG9_POINTS:
+            costs[key], _, _ = figure_output("fig9", paper_figs.fig9_point,
+                                             common.sim_config(n_cu, n_ec), key,
+                                             (DS, EC_SELF, CU_FULL), device, PAPER_SLOTS)
+        out["figures"]["fig9"] = {"seconds": time.perf_counter() - t9}
+
+        timing = {}
+        full_allocate = training_alloc.full_allocate
+
+        def timed_full_allocate(beta, *args, **kw):
+            if not runs.in_run:  # the slot held against the CPU
+                return full_allocate(beta, *args, **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = full_allocate(beta, *args, **kw)
+            torch.cuda.synchronize()
+            key = "x".join(str(s) for s in beta.shape[-2:])
+            timing.setdefault(key, []).append(time.perf_counter() - t)
+            return res
+
+        runs.figure, t9 = "fig9_ecfull", time.perf_counter()
+        with mock.patch.object(training_alloc, "full_allocate", timed_full_allocate):
+            for key, n_cu, n_ec in paper_figs.FIG9_POINTS:
+                costs[key].update(figure_output("fig9_ecfull", paper_figs.fig9_point,
+                                                common.sim_config(n_cu, n_ec), key, (EC_FULL,),
+                                                device, PAPER_ECFULL_SLOTS)[0])
+        out["figures"]["fig9_ecfull"] = {"seconds": time.perf_counter() - t9}
+    if not all_finite(costs):
+        fail(f"phase 19 (c) fig9: unit costs {costs}")
+    # Fig. 9's headline, as fig9_unit_cost computes it.
+    reduction = max(100 * (c["cufull"] - c["ds"]) / c["cufull"] for c in costs.values())
+    out["checks"]["fig9/max_cost_reduction_vs_cufull_pct"] = f"{reduction:.1f}"
+    out["fig9_costs"] = costs
+    calls = {k: len(v) for k, v in timing.items()}
+    if sorted(calls.values()) != [PAPER_ECFULL_SLOTS] * len(paper_figs.FIG9_POINTS):
+        fail(f"phase 19 (c): full_allocate calls {json.dumps(calls)}, expected "
+             f"{PAPER_ECFULL_SLOTS} at each of {len(paper_figs.FIG9_POINTS)} points")
+    ecfull_ms = {"x".join(map(str, r["shape"])): r["ms_per_slot"] for r in runs.runs
+                 if r["figure"] == "fig9_ecfull"}
+    out["full_allocate"] = {
+        "ms_per_call": {k: 1e3 * sum(v) / len(v) for k, v in timing.items()},
+        "ecfull_ms_per_slot": ecfull_ms,
+        "share_of_ecfull_slots": 1e3 * sum(sum(v) for v in timing.values())
+        / (PAPER_ECFULL_SLOTS * sum(ecfull_ms.values()))}
+    out["runs"] = runs7 + runs.runs
+    out["slot_err"] = runs.slot_err
+    out["launches"] = {}
+    for r in out["runs"]:
+        fig = out["launches"].setdefault(r["figure"], dict.fromkeys(DS_PER_SLOT, 0))
+        for k in DS_PER_SLOT:
+            fig[k] += r["launches"][k]
+    return out
+def report_paper(paper: dict, smi: str, t0: float) -> None:
+    m = paper["matchers"]
+    print(f"phase 19 matchers at the figures' N x M {list(PAPER_SHAPES)} (pairing M x M), "
+          f"phase 2's cases: {json.dumps(m)} checks, all bit-equal to the plain versions "
+          f"({paper['matchers_s']:.1f} s)")
+    for fig, f in paper["figures"].items():
+        runs = " | ".join(
+            f"{r['spec']} {r['shape'][0]}x{r['shape'][1]} eps {r['eps']} {r['ms_per_slot']:.3f} "
+            f"ms/slot {json.dumps([r['launches'][k] for k in DS_PER_SLOT])}"
+            for r in paper["runs"] if r["figure"] == fig)
+        slots = {"fig7": paper["fig7_slots"], "fig9_ecfull": paper["ecfull_slots"]}.get(
+            fig, paper["slots"])
+        print(f"phase 19 {fig}, {slots} slots, {f['seconds']:.1f} s [{smi}] (ms a slot, "
+              f"launches of {', '.join(DS_PER_SLOT)}): {runs}")
+    checks = "; ".join(f"{name} {v} (JAX on the CPU: {PAPER_REFERENCE_CHECKS[name]})"
+                       for name, v in paper["checks"].items())
+    print(f"phase 19 checks (findings, not gates): {checks}")
+    errs = paper["slot_err"]
+    print(f"phase 19 one more slot of each run, card vs CPU: decisions bit-equal in "
+          f"{len(errs)} config x spec pairs, largest other gap {max(errs.values()):.3e} of "
+          f"scale (limit {PAPER_SLOT_TOL})")
+    tb = paper["train_batch"]
+    print(f"phase 19 (a) train_batch card vs CPU: {tb['max_err_of_scale']:.3e} of scale (limit "
+          f"{PAPER_TRAIN_TOL:.0e}), {tb['ms']:.4f} ms a call on the card, {tb['cpu_ms']:.4f} "
+          f"on the CPU; accuracies {json.dumps(paper['figures']['fig7']['values'])}")
+    fa = paper["full_allocate"]
+    print(f"phase 19 (c) unit costs {json.dumps(paper['fig9_costs'])}; full_allocate ms a call "
+          f"by N x M {json.dumps(fa['ms_per_call'])}; EC_FULL ms a slot "
+          f"{json.dumps(fa['ecfull_ms_per_slot'])}; full_allocate "
+          f"{100 * fa['share_of_ecfull_slots']:.1f} % of the EC_FULL slots (a synchronise on "
+          f"each side of each call)")
+    print(f"phase 19 matcher launches by figure: {json.dumps(paper['launches'])}")
+    print(f"phase 19 took {time.perf_counter() - t0:.1f} s (cut: Figs. 5, 6, 8 and 9 at "
+          f"{paper['slots']} of their 60 slots, Fig. 9's EC_FULL at {paper['ecfull_slots']}; "
+          f"Fig. 7 at its {paper['fig7_slots']})")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", type=Path, default=None,
@@ -3983,7 +4333,11 @@ def main(argv=None) -> int:
     print(f"phase 18 took {time.perf_counter() - t0:.1f} s (card vs CPU "
           f"{trf['card_vs_cpu_s']:.1f} s)")
 
-    for mod in ("jax", "repro"):
+    t0 = time.perf_counter()
+    paper = phase_paper(torch, core, bridge, ops, all_kernels, training_alloc)
+    report_paper(paper, smi, t0)
+
+    for mod in ("jax", "repro", "benchmarks"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
 
@@ -4001,6 +4355,7 @@ def main(argv=None) -> int:
             "launches_ds": main_res["ds"]["launches"][f"greedy_{op}"],
             "launches_fleet": {name: r["launches"][f"greedy_{op}"]
                                for name, r in fleet["homogeneous"].items()},
+            "launches_paper": {fig: n[f"greedy_{op}"] for fig, n in paper["launches"].items()},
             "max_abs_err": r["max_abs_err"], "ms": tm["device_ms"], "device_ms": tm["device_ms"],
             "event_ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": None, "shape": tm["shape"],
@@ -4204,8 +4559,9 @@ def main(argv=None) -> int:
             "serve": serve_res, "lm_parity": lm_parity, "fleet": fleet, "train": trn,
             "families": fam, "distributed": dst, "decode_lse": lse_res,
             "tensor_parallel": tp, "tensor_parallel_15": tp15, "split_decode": split,
-            "dryrun": dry, "train_families": trf},
-            indent=1))
+            "dryrun": dry, "train_families": trf,
+            "paper": paper},
+            indent=1, default=str))
     import torch.distributed as dist
     dist.destroy_process_group()
     print(f"all phases took {time.perf_counter() - t_start:.1f} s (of a 1,200 s limit)")

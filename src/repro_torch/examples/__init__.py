@@ -7,19 +7,21 @@
     PYTHONPATH=src python -m repro_torch.examples.ragged_fleet [--device cpu]
     PYTHONPATH=src python -m repro_torch.examples.mixed_policy_fleet [--device cpu]
     PYTHONPATH=src python -m repro_torch.examples.train_lm_cocktail [--device cpu]
+    PYTHONPATH=src python -m repro_torch.examples.traffic_prediction [--device cpu]
 """
 import argparse
 import os
 
 
-def example_args(doc: str, argv=None) -> tuple[str | None, int]:
+def example_args(doc: str, argv=None, default_slots: int = 60) -> tuple[str | None, int]:
     """(device, slots) of an example: ``--device`` (CUDA when not given) of
-    ``argv`` (the command line when None) and ``COCKTAIL_EXAMPLE_SLOTS`` (60
-    when unset)."""
+    ``argv`` (the command line when None) and ``COCKTAIL_EXAMPLE_SLOTS``
+    (``default_slots`` when unset)."""
     parser = argparse.ArgumentParser(description=doc.splitlines()[0])
     parser.add_argument("--device", default=None,
                         help="torch device to run on (default: cuda)")
-    return parser.parse_args(argv).device, int(os.environ.get("COCKTAIL_EXAMPLE_SLOTS", "60"))
+    slots = int(os.environ.get("COCKTAIL_EXAMPLE_SLOTS", default_slots))
+    return parser.parse_args(argv).device, slots
 
 
 def print_slices(engine, jobs, state, with_spec: bool = False) -> None:
